@@ -1,0 +1,203 @@
+// K1 and K2: both directions of the 1-bit-packed interaction matrix B.
+//
+// Replaces the TPU kernels igcn_cf_tpu/kernels/bitpack.py::_t1_pallas
+// (_make_t1_kernel) and ::_t2_pallas (_make_t2_kernel):
+//
+//   K1  y1 (m, d) = B @ X1     X1 (K, d) bf16 rows, sums in f32
+//   K2  y2 (K, d) = B^T @ X2   X2 (m, d) bf16 rows, sums in f32
+//
+// B is (m, kw) uint32 words, K = 32 * kw, in the bit-plane tile layout:
+// column c is word (c / 4096) * 128 + c % 128, bit (c % 4096) / 128. The
+// Python wrappers keep the JAX package's transposed (d, n) interface and
+// hand the kernels row-major (n, d) operands and outputs.
+//
+// What bounds them on the H100. At the serving slice B is 30,208 x 1,408
+// words (170 MB) and a row holds ~28 set bits, so ~2% of the words are not
+// zero. Counted at the dense rate a launch is 2*m*K*d = 1.7e11 FLOP; the
+// TPU kernels did that dense work on the MXU. Here both kernels SKIP zero
+// words: each launch streams the 170 MB of words once (a ~51 us floor at
+// the data sheet's 3.35 TB/s) and gathers one d-wide bf16 row of X per set
+// bit (833k rows of 128 B at d=64; X1 is 5.8 MB and X2 3.9 MB, small
+// enough for the 50 MB L2). They are bound by the word stream and by
+// gather latency, not by arithmetic. Measured times are in PERF.md. No
+// tensor cores, no TMA: this is the simple, exact version.
+//
+// K1 design: one warp per row of B. The 32 lanes read 32 consecutive words
+// (one 128-byte load), a ballot finds the non-zero ones, and for each set
+// bit the whole warp adds the matching X1 row (lane l owns features
+// l, l+32, ...). The row's sum stays in registers; no atomics.
+//
+// K2 design: K2 contracts over rows. On the TPU a sequential grid carried
+// that sum in VMEM; Hopper blocks run in no order. So each warp OWNS one
+// word column w (32 output columns) for the whole of B and walks all m rows
+// in order, keeping its 32 x d partial sums in shared memory. Every output
+// element has exactly one writer and one summation order (rows ascending):
+// deterministic, no atomics. The 4 warps of a block own adjacent words, so
+// their strided word loads share 32-byte sectors.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTKP = 128;            // word lanes per tile
+constexpr int kTK = kTKP * 32;       // columns per tile
+constexpr int kT1Threads = 256;      // 8 rows per block
+constexpr int kT2Warps = 4;          // word columns per block
+constexpr int kT2Unroll = 4;         // 32-row groups in flight per warp
+
+__device__ __forceinline__ int column_of(int word, int bit) {
+  return (word / kTKP) * kTK + bit * kTKP + (word % kTKP);
+}
+
+// DPL: features per lane, d <= 32 * DPL.
+template <int DPL>
+__global__ void __launch_bounds__(kT1Threads)
+t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
+          float* __restrict__ y1, int m, int kw, int d) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= m) return;  // uniform per warp
+  const uint32_t* words = wp + (size_t)row * kw;
+  float acc[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
+
+  for (int base = 0; base < kw; base += 32) {
+    const int w = base + lane;
+    const uint32_t word = w < kw ? __ldg(words + w) : 0u;
+    unsigned live = __ballot_sync(kFull, word != 0u);
+    while (live) {
+      const int src = __ffs(live) - 1;
+      live &= live - 1;
+      uint32_t bits = __shfl_sync(kFull, word, src);
+      while (bits) {  // uniform across the warp
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const __nv_bfloat16* xr = x1 + (size_t)column_of(base + src, b) * d;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          const int f = lane + 32 * j;
+          if (f < d) acc[j] += __bfloat162float(xr[f]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) {
+    const int f = lane + 32 * j;
+    if (f < d) y1[(size_t)row * d + f] = acc[j];
+  }
+}
+
+template <int DPL>
+__global__ void __launch_bounds__(kT2Warps * 32)
+t2_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x2,
+          float* __restrict__ y2, int m, int kw, int d) {
+  extern __shared__ float sacc[];  // [kT2Warps][32 planes][d]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int w = blockIdx.x * kT2Warps + warp;
+  float* acc = sacc + (size_t)warp * 32 * d;
+  if (w >= kw) return;  // uniform per warp; no block-wide barrier follows
+  for (int i = lane; i < 32 * d; i += 32) acc[i] = 0.f;
+  __syncwarp();
+
+  for (int r0 = 0; r0 < m; r0 += 32 * kT2Unroll) {
+    uint32_t word[kT2Unroll];
+#pragma unroll
+    for (int u = 0; u < kT2Unroll; ++u) {
+      const int r = r0 + 32 * u + lane;
+      word[u] = r < m ? __ldg(wp + (size_t)r * kw + w) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kT2Unroll; ++u) {
+      unsigned live = __ballot_sync(kFull, word[u] != 0u);
+      while (live) {  // rows in ascending order
+        const int src = __ffs(live) - 1;
+        live &= live - 1;
+        uint32_t bits = __shfl_sync(kFull, word[u], src);
+        const __nv_bfloat16* xr = x2 + (size_t)(r0 + 32 * u + src) * d;
+        float xv[DPL];
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          const int f = lane + 32 * j;
+          xv[j] = f < d ? __bfloat162float(xr[f]) : 0.f;
+        }
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          bits &= bits - 1;
+          float* a = acc + b * d;
+#pragma unroll
+          for (int j = 0; j < DPL; ++j) {
+            const int f = lane + 32 * j;
+            if (f < d) a[f] += xv[j];  // each lane owns its features
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();
+  for (int b = 0; b < 32; ++b) {
+    float* out = y2 + (size_t)column_of(w, b) * d;
+    for (int f = lane; f < d; f += 32) out[f] = acc[b * d + f];
+  }
+}
+
+template <int DPL>
+cudaError_t launch_t1(const uint32_t* wp, const __nv_bfloat16* x1, float* y1,
+                      int m, int kw, int d, cudaStream_t stream) {
+  const int rows_per_block = kT1Threads / 32;
+  const int blocks = (m + rows_per_block - 1) / rows_per_block;
+  t1_kernel<DPL><<<blocks, kT1Threads, 0, stream>>>(wp, x1, y1, m, kw, d);
+  return cudaGetLastError();
+}
+
+template <int DPL>
+cudaError_t launch_t2(const uint32_t* wp, const __nv_bfloat16* x2, float* y2,
+                      int m, int kw, int d, cudaStream_t stream) {
+  const size_t smem = (size_t)kT2Warps * 32 * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      t2_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (kw + kT2Warps - 1) / kT2Warps;
+  t2_kernel<DPL><<<blocks, kT2Warps * 32, smem, stream>>>(wp, x2, y2, m, kw, d);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// d must be in [1, 256]: the shared partial sums of K2 take 512*d bytes.
+int igcn_t1(const void* wp, const void* x1, void* y1, int m, int kw, int d,
+            void* stream) {
+  auto w = static_cast<const uint32_t*>(wp);
+  auto x = static_cast<const __nv_bfloat16*>(x1);
+  auto y = static_cast<float*>(y1);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 256 || m < 0 || kw < 0) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaGetLastError();
+  if (d <= 32) return (int)launch_t1<1>(w, x, y, m, kw, d, s);
+  if (d <= 64) return (int)launch_t1<2>(w, x, y, m, kw, d, s);
+  if (d <= 128) return (int)launch_t1<4>(w, x, y, m, kw, d, s);
+  return (int)launch_t1<8>(w, x, y, m, kw, d, s);
+}
+
+int igcn_t2(const void* wp, const void* x2, void* y2, int m, int kw, int d,
+            void* stream) {
+  auto w = static_cast<const uint32_t*>(wp);
+  auto x = static_cast<const __nv_bfloat16*>(x2);
+  auto y = static_cast<float*>(y2);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 256 || m < 0 || kw < 0) return (int)cudaErrorInvalidValue;
+  if (kw == 0) return (int)cudaGetLastError();
+  if (d <= 32) return (int)launch_t2<1>(w, x, y, m, kw, d, s);
+  if (d <= 64) return (int)launch_t2<2>(w, x, y, m, kw, d, s);
+  if (d <= 128) return (int)launch_t2<4>(w, x, y, m, kw, d, s);
+  return (int)launch_t2<8>(w, x, y, m, kw, d, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,145 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+ctypes. The library lands in ``igcn_cf_tpu_torch/build/`` under a name keyed
+on a hash of the sources and flags, so an edit rebuilds and an unchanged
+tree reuses the library. Nothing is fetched.
+
+A missing ``nvcc`` or a failed build raises: a CUDA tensor never falls back
+to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-shared", "-Xcompiler", "-fPIC", "-std=c++17",
+)
+
+# Launches of each kernel, counted by its wrapper right after a launch that
+# returned no error. A run resets them to show which kernels it went through.
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: every pointer and the stream as c_void_p, every int as
+# c_int; each returns cudaGetLastError() after its launches. The stream is
+# the last argument and is added by ``launch``.
+_SIGNATURES = {
+    # (wp, x1 (K, d) bf16, y1 (m, d) f32, m, kw, d, stream)
+    "igcn_t1": (_P, _P, _P, _I, _I, _I, _P),
+    # (wp, x2 (m, d) bf16, y2 (K, d) f32, m, kw, d, stream)
+    "igcn_t2": (_P, _P, _P, _I, _I, _I, _P),
+    # (users, items_t, excl, banned, part_v, part_i, out,
+    #  n_users, n_items_pad, d, k, li, stream)
+    "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
+    plain version runs); any other device is refused."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "of igcn_cf_tpu_torch cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libigcn_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    Returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.igcn_error_string.argtypes = [ctypes.c_int]
+        lib.igcn_error_string.restype = ctypes.c_char_p
+        lib.igcn_fused_topk_chunks.argtypes = [ctypes.c_int]
+        lib.igcn_fused_topk_chunks.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name`` with tensors passed as device pointers, on the
+    current stream of the tensors' device. Raises if the launch failed."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on different devices")
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        err = getattr(lib, name)(*c_args, stream)
+    if err != 0:
+        msg = lib.igcn_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")

@@ -1,0 +1,197 @@
+"""Dense-bipartite graph engine (port of the evaluation path of
+``igcn_cf_tpu/kernels/dense_graph.py``).
+
+Every graph matrix of IGCN is the binary user x item pattern B with row-wise
+scaling, so one bit-packed B serves both the INMO feature aggregation and
+the symmetric-normalized propagation:
+
+    A @ X = [ du * (B @ (di * X_i)) ; di * (B^T @ (du * X_u)) ],
+    du, di = max(degree, 1)^-1/2.
+
+Both directions of one step run as one ``bbt_pair`` call (kernels K1/K2) in
+the transposed (d, n) layout of the JAX package. Training (edge dropout, the
+masked operands, gradients) is not ported yet; neither is the sparse COO
+backend (``kernels/sparse.py``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from igcn_cf_tpu_torch.kernels.bitpack import (
+    TK,
+    TKP,
+    TM,
+    bbt_pair,
+    pack_interactions,
+    pad_to,
+    scatter_bits,
+)
+
+PAD_ROWS = TM
+PAD_COLS = TK
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def _pad_cols(xt: torch.Tensor, n: int) -> torch.Tensor:
+    if xt.shape[1] == n:
+        return xt
+    return torch.cat([xt, xt.new_zeros((xt.shape[0], n - xt.shape[1]))], dim=1)
+
+
+@dataclass(frozen=True)
+class BipartiteDense:
+    """Bit-packed binary interaction matrix (rows padded to TM=512, columns
+    to TK=4096) plus logical-size degree vectors. ``B`` is (rows_pad,
+    cols_pad/32) int32 words in the kernels/bitpack.py layout."""
+
+    B: torch.Tensor  # (nup, nip/32) int32
+    deg_u: torch.Tensor  # (n_users,) f32
+    deg_i: torch.Tensor  # (n_items,) f32
+    n_users: int
+    n_items: int
+
+    @staticmethod
+    def build(train_array: np.ndarray, n_users: int, n_items: int,
+              device="cpu") -> "BipartiteDense":
+        """Pack on ``device``: only the deduplicated (row, word, bit) index
+        arrays cross to it, not the packed matrix. Pairs are deduplicated on
+        the host because the scatter adds powers of two."""
+        train_array = np.asarray(train_array)
+        mp, kp = pad_to(n_users, TM), pad_to(n_items, TK)
+        uniq = np.unique(
+            train_array[:, 0].astype(np.int64) * np.int64(n_items)
+            + train_array[:, 1].astype(np.int64)
+        ) if len(train_array) else np.zeros(0, np.int64)
+        rows, cols = uniq // n_items, uniq % n_items
+        packed = scatter_bits(mp, kp // 32, rows, (cols // TK) * TKP + cols % TKP,
+                              (cols % TK) // TKP, device)
+        rows_t = torch.as_tensor(rows).to(device)
+        cols_t = torch.as_tensor(cols).to(device)
+        ones = torch.ones(len(uniq), dtype=torch.float32, device=device)
+        deg_u = torch.zeros(n_users, dtype=torch.float32, device=device)
+        deg_i = torch.zeros(n_items, dtype=torch.float32, device=device)
+        deg_u.index_add_(0, rows_t, ones)
+        deg_i.index_add_(0, cols_t, ones)
+        return BipartiteDense(packed, deg_u, deg_i, n_users, n_items)
+
+    @staticmethod
+    def build_host(train_array: np.ndarray, n_users: int, n_items: int,
+                   device="cpu") -> "BipartiteDense":
+        """Host-side pack, uploaded whole: the oracle for ``build``."""
+        train_array = np.asarray(train_array)
+        packed, _, _ = pack_interactions(train_array, n_users, n_items)
+        deg_u = np.zeros(n_users, dtype=np.float32)
+        deg_i = np.zeros(n_items, dtype=np.float32)
+        if len(train_array):
+            np.add.at(deg_u, train_array[:, 0], 1.0)
+            np.add.at(deg_i, train_array[:, 1], 1.0)
+        return BipartiteDense(
+            torch.as_tensor(packed).to(device),
+            torch.as_tensor(deg_u).to(device),
+            torch.as_tensor(deg_i).to(device),
+            n_users,
+            n_items,
+        )
+
+    @property
+    def cols_padded(self) -> int:
+        return int(self.B.shape[1]) * 32
+
+    @property
+    def rows_padded(self) -> int:
+        return int(self.B.shape[0])
+
+
+def _sym_norm_propagate_t(g: BipartiteDense, xt: torch.Tensor) -> torch.Tensor:
+    """One D^-1/2 A D^-1/2 step in transposed (d, n) layout: both directions
+    ride one ``bbt_pair`` call."""
+    su = torch.rsqrt(torch.clamp(g.deg_u, min=1.0))[None, :]
+    si = torch.rsqrt(torch.clamp(g.deg_i, min=1.0))[None, :]
+    xu_t, xi_t = xt[:, : g.n_users], xt[:, g.n_users :]
+    y1t, y2t = bbt_pair(
+        g.B,
+        _pad_cols(si * xi_t, g.cols_padded),
+        _pad_cols(su * xu_t, g.rows_padded),
+    )
+    return torch.cat(
+        [su * y1t[:, : g.n_users], si * y2t[:, : g.n_items]], dim=1
+    )
+
+
+def sym_norm_propagate_mean(
+    g: BipartiteDense, x0: torch.Tensor, n_layers: int
+) -> torch.Tensor:
+    """Mean over layers 0..K of sym-norm propagation, (n, d) in and out."""
+    xt = x0.T
+    acc = xt
+    for _ in range(n_layers):
+        xt = _sym_norm_propagate_t(g, xt)
+        acc = acc + xt
+    return (acc / float(n_layers + 1)).T
+
+
+def feat_aggregate(
+    g: BipartiteDense,
+    e_items_full: torch.Tensor,  # (n_items, d); zero rows on non-template items
+    e_users_full: torch.Tensor,  # (n_users, d)
+    tok_u: torch.Tensor,  # (d,) shared user-token embedding
+    tok_i: torch.Tensor,
+    w_u: torch.Tensor,  # (n_users,) annealed row weights
+    w_i: torch.Tensor,
+) -> torch.Tensor:
+    """X0 = feat_mat @ E, the INMO inductive layer, at evaluation (no edge
+    dropout): user rows sum their items' template embeddings plus the user
+    token, item rows their users' plus the item token, each row scaled by
+    its annealed weight. Both directions are one ``bbt_pair`` call."""
+    x1t = _pad_rows(e_items_full, g.cols_padded).T
+    x2t = _pad_rows(e_users_full, g.rows_padded).T
+    y1t, y2t = bbt_pair(g.B, x1t, x2t)
+    xu_t = y1t[:, : g.n_users] + tok_u[:, None]
+    xi_t = y2t[:, : g.n_items] + tok_i[:, None]
+    x0t = torch.cat([w_u[None, :] * xu_t, w_i[None, :] * xi_t], dim=1)
+    return x0t.T
+
+
+# The plain versions on the CPU unpack B to f32, 32x its packed size: a
+# fixed 64 MiB packed budget keeps that under 2 GiB. On CUDA the kernels
+# read B packed, so a quarter of the card's memory is left for B.
+CPU_DENSE_BUDGET_BYTES = 64 * 1024**2
+
+
+def dense_budget_bytes(device) -> int:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 4
+    return CPU_DENSE_BUDGET_BYTES
+
+
+def dense_fits(n_users: int, n_items: int, budget: int) -> bool:
+    return pad_to(n_users, PAD_ROWS) * pad_to(n_items, PAD_COLS) // 8 <= budget
+
+
+def choose_backend(n_users: int, n_items: int, requested: str = "auto",
+                   device="cpu") -> str:
+    """'dense' (the bit-packed engine) whenever the packed matrix fits the
+    device's budget. The sparse COO backend is not ported: asking for it,
+    or a catalog too large for dense, raises."""
+    if requested not in ("auto", "dense", "sparse"):
+        raise ValueError(f"unknown graph backend {requested!r}")
+    if requested == "dense" or (
+        requested == "auto"
+        and dense_fits(n_users, n_items, dense_budget_bytes(device))
+    ):
+        return "dense"
+    raise NotImplementedError(
+        f"graph backend 'sparse' (needed for {n_users} x {n_items} with "
+        f"{requested!r}) is not ported yet: see ROADMAP.md queue 1, "
+        "'Remaining models and trainers', the kernels/sparse.py COO fallback"
+    )

@@ -1,0 +1,2 @@
+from igcn_cf_tpu_torch.models.base import Model, get_model  # noqa: F401
+from igcn_cf_tpu_torch.models import inmo  # noqa: F401  (registers IGCN, IMF)
