@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's IGCN serving path once on one NVIDIA H100.
+"""Drive the PyTorch port's IGCN serving and training paths once on one
+NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -10,17 +11,34 @@ Phases, each fatal on failure:
   1. device  -- a CUDA card of compute capability 9.0; its name and power
      limit as nvidia-smi reports them.
   2. build   -- compile ``igcn_cf_tpu_torch/csrc/*.cu`` with nvcc.
-  3. kernels -- K1, K2 (the bit-packed pair) and K5 (fused retrieval) against
-     their plain PyTorch versions on the card, at a small shape and at the
-     serving slice's shapes, with median times of both.
-  4. main path -- the Gowalla-scale synthetic catalog (seed 2021), an IGCN
+  3. kernels -- K1, K2 (the bit-packed pair), K5 (fused retrieval), K6/K7
+     (bb_matmul at the cache build's 128-wide block) and the K8 counterpart
+     (the dropout mask over the full B, bit-equal) against their plain
+     PyTorch versions on the card, at the slice's shapes, with median times
+     of both.
+  4. serve path -- the Gowalla-scale synthetic catalog (seed 2021), an IGCN
      checkpoint (d=64, 3 layers) with weights from a numpy seed, then
      ``Recommender.from_checkpoint`` over the dropui (80%) catalog,
      ``refresh`` onto the full catalog twice, and ``recommend`` k=20 for 512
      and 4,096 users. The ids are checked for range, uniqueness, exclusion,
-     and against the same path through the plain versions; each kernel's
-     launch count must rise during this phase.
-  5. output  -- a JSON line of the kernels, the nvidia-smi line, and last
+     and against the same path through the plain versions; K1, K2 and K5
+     must launch during this phase.
+  5. train path -- IGCN at the Gowalla preset (d=64, 3 layers, dropout 0.3,
+     IGCNTrainer batch 2048, Adam lr 1e-3, aux_reg 0.01) on the full
+     catalog through ``get_model(...)`` and ``get_trainer(...).train()``:
+     the propagation cache P is built and the engines A/B-measured
+     (prop_cache 'auto'), one epoch (407 steps) trains on the cache engine,
+     and a validation eval runs through K5. The loss must be finite and
+     fall over the epoch, and NDCG@20 must beat the untrained parameters'.
+     Then a few steps on the recompute engine. Every kernel K1-K8 must
+     launch during this phase.
+  6. train checks -- K3/K4 at R = 6,144 on the real P against their plain
+     versions; K5 at the validation eval's shape (29,858 users x 45,056
+     padded items, trained representations, val exclusion) against its plain
+     version, with NDCG@20 of both id sets; one train step on each engine
+     through the kernels against the same step through the plain versions
+     (same batch, same seeds): loss and gradients.
+  7. output  -- a JSON line of the kernels, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 
 The dataset is cached in ``.smoke/`` (generated in about a minute if absent).
@@ -28,6 +46,7 @@ The dataset is cached in ``.smoke/`` (generated in about a minute if absent).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -51,20 +70,46 @@ CACHE_DIR = ROOT / ".smoke"
 N_USERS, N_ITEMS, AVG_DEG, SEED = 29858, 40981, 34.4, 2021
 MODEL_CFG = {"name": "IGCN", "embedding_size": 64, "n_layers": 3,
              "dropout": 0.3, "feature_ratio": 1.0}
+# the Gowalla preset's trainer (configs/presets.py:52), one epoch
+TRAINER_CFG = {"name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3,
+               "l2_reg": 0.0, "aux_reg": 0.01, "n_epochs": 1,
+               "batch_size": 2048, "topks": [20], "seed": SEED}
+RECOMPUTE_STEPS = 20
 REQUEST_SIZES = (512, 4096)
 K = 20
 PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-4  # f32 sums of the same bf16 operands
 TOPK_RTOL = 1e-5  # ids may differ only between scores this close
+EVAL_CHECK_CHUNK = 4096  # users per plain top-k at the eval's shape
 REP_RTOL, REP_ATOL = 2e-3, 1e-5  # bf16 re-rounding between layers
+# K3/K4 against f32 matmuls of the same bf16 operands: the sums run in
+# another order (mma tiles) over 70,912 terms
+GATHER_RTOL, GATHER_ATOL = 1e-4, 1e-5
+# one train step, kernels vs plain versions: the loss within 1e-5
+# relative; each gradient within 1e-2 of its largest magnitude, because the
+# backward rounds cotangents to bf16 and a sum-order difference upstream can
+# move one across a bf16 step (2^-8 relative)
+STEP_LOSS_RTOL, STEP_GRAD_REL = 1e-5, 1e-2
 
 KERNELS = {
     "K1": ("bbt_pair t1: y1t = (B @ X1)^T", "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
            "igcn_cf_tpu/kernels/bitpack.py:498"),
     "K2": ("bbt_pair t2: y2t = (B^T @ X2)^T", "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
            "igcn_cf_tpu/kernels/bitpack.py:529"),
+    "K3": ("cached_prop fwd: P[rows] @ X0", "igcn_cf_tpu_torch/csrc/pcache.cu",
+           "igcn_cf_tpu/kernels/pcache.py:246"),
+    "K4": ("cached_prop bwd: P[rows]^T @ ct", "igcn_cf_tpu_torch/csrc/pcache.cu",
+           "igcn_cf_tpu/kernels/pcache.py:339"),
     "K5": ("fused score+mask+top-k", "igcn_cf_tpu_torch/csrc/fused_topk.cu",
            "igcn_cf_tpu/kernels/retrieval.py:226"),
+    "K6": ("bb_matmul fwd: B @ X (unmasked)", "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
+           "igcn_cf_tpu/kernels/bitpack.py:275"),
+    "K7": ("bb_matmul bwd: B^T @ X (unmasked)", "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
+           "igcn_cf_tpu/kernels/bitpack.py:306"),
+    "K8": ("mask_words: B & keepword (counterpart of mask_words_hw)",
+           "igcn_cf_tpu_torch/csrc/mask_words.cu",
+           "igcn_cf_tpu/kernels/bitpack.py:609"),
 }
+SERVE_KERNELS = ("K1", "K2", "K5")
 
 
 def log(msg: str) -> None:
@@ -75,25 +120,6 @@ def sync() -> None:
     import torch
 
     torch.cuda.synchronize()
-
-
-def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
-    """Median milliseconds of one call, by CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 # -- phase 1: device ------------------------------------------------------------
@@ -146,6 +172,7 @@ def check_pair(rng, pairs, n_users, n_items, d, timed):
 
     from igcn_cf_tpu_torch.kernels import bitpack
     from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
     g = BipartiteDense.build(pairs, n_users, n_items, "cuda")
     m, kw = g.B.shape
@@ -161,8 +188,8 @@ def check_pair(rng, pairs, n_users, n_items, d, timed):
         torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
         out[name] = {"max_abs_err": err}
         if timed:
-            out[name]["ms"] = time_ms(lambda: kern(g.B, x))
-            out[name]["plain_ms"] = time_ms(lambda: plain(g.B, x), reps=5)
+            out[name]["ms"] = cuda_ms(lambda: kern(g.B, x))
+            out[name]["plain_ms"] = cuda_ms(lambda: plain(g.B, x), reps=5)
         log(f"# {name} B {m}x{kw} words ({int(g.deg_u.sum())} bits) d={d}: "
             f"max_abs_err {err:.3g}"
             + (f", {out[name]['ms']:.4f} ms vs plain {out[name]['plain_ms']:.4f} ms"
@@ -205,6 +232,7 @@ def check_topk(rng, n, n_items, nip, li, d, k, timed):
 
     from igcn_cf_tpu_torch.kernels.retrieval import (
         NEG, fused_topk_ids, fused_topk_ids_plain, pack_exclusion_words_device)
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
     per_user = 28
     rows = np.repeat(np.arange(n), per_user)
@@ -237,9 +265,9 @@ def check_topk(rng, n, n_items, nip, li, d, k, timed):
             same, gap = topk_agree(got, want, scores, TOPK_RTOL)
             out["max_abs_err"] = gap
             if timed:
-                out["ms"] = time_ms(
+                out["ms"] = cuda_ms(
                     lambda: fused_topk_ids(ur, it, excl, banned, k=k, li=li))
-                out["plain_ms"] = time_ms(
+                out["plain_ms"] = cuda_ms(
                     lambda: fused_topk_ids_plain(ur, it, excl, banned, k=k, li=li),
                     reps=5)
         log(f"# K5 {kind} n={n} items={n_items} (pad {nip}) d={d} k={k}: "
@@ -249,10 +277,53 @@ def check_topk(rng, n, n_items, nip, li, d, k, timed):
     return out
 
 
+def check_matmul_and_mask(rng, full):
+    """K6/K7 at one 128-wide block of the real B (the cache build's shape),
+    and the K8 counterpart over the full B, bit-equal."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import bitpack
+    from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    g = BipartiteDense.build(full.train_array, full.n_users, full.n_items, "cuda")
+    m, kw = g.B.shape
+    out = {}
+    for name, kern, plain, rows in (("K6", bitpack.mm_fwd, bitpack.mm_fwd_plain, kw * 32),
+                                    ("K7", bitpack.mm_bwd, bitpack.mm_bwd_plain, m)):
+        x = torch.as_tensor(rng.standard_normal((rows, 128), np.float32)).to("cuda")
+        got, want = kern(g.B, x), plain(g.B, x)
+        sync()
+        torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+        out[name] = {"max_abs_err": float((got - want).abs().max()),
+                     "ms": cuda_ms(lambda: kern(g.B, x)),
+                     "plain_ms": cuda_ms(lambda: plain(g.B, x), reps=5)}
+        log(f"# {name} B {m}x{kw} words, X {rows}x128: max_abs_err "
+            f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms vs plain "
+            f"{out[name]['plain_ms']:.4f} ms")
+    seed = 2**32 - 12345  # near the top of the u32 range
+    got = bitpack.mask_words(g.B, seed, MODEL_CFG["dropout"])
+    want = bitpack.mask_words_plain(g.B, seed, MODEL_CFG["dropout"])
+    sync()
+    if not torch.equal(got, want):
+        raise AssertionError("K8 mask differs from its plain version")
+    kept = int(bitpack.unpack_bits(got[:2048]).sum())
+    total = int(bitpack.unpack_bits(g.B[:2048]).sum())
+    out["K8"] = {"max_abs_err": 0.0,
+                 "ms": cuda_ms(lambda: bitpack.mask_words(g.B, seed, 0.3)),
+                 "plain_ms": cuda_ms(lambda: bitpack.mask_words_plain(g.B, seed, 0.3),
+                                     reps=5)}
+    log(f"# K8 mask over B {m}x{kw} words: bit-equal, kept {kept}/{total} "
+        f"edges of the first 2048 rows (expect {1 - 77 / 256:.4f}), "
+        f"{out['K8']['ms']:.4f} ms vs plain {out['K8']['plain_ms']:.4f} ms")
+    return out
+
+
 def phase_kernels(full):
     """Small random cases, then the slice's shapes: K1/K2 on the full
     catalog's interaction matrix (its skewed item degrees included), K5 at
-    both request sizes."""
+    both request sizes, K6/K7 at the cache build's block, the mask on the
+    full B. K3/K4 are checked on the real P in phase 6."""
     rng = np.random.default_rng(0)
     check_pair(rng, random_pairs(rng, 300, 400, 12000), 300, 400, 16, timed=False)
     pair = check_pair(rng, full.train_array, full.n_users, full.n_items, 64,
@@ -261,10 +332,11 @@ def phase_kernels(full):
     nip = -(-N_ITEMS // 4096) * 4096
     topk = {n: check_topk(rng, n, N_ITEMS, nip, 4096, 64, K, timed=True)
             for n in REQUEST_SIZES}
-    return {"K1": pair["K1"], "K2": pair["K2"], "K5": topk[max(REQUEST_SIZES)]}
+    return {"K1": pair["K1"], "K2": pair["K2"], "K5": topk[max(REQUEST_SIZES)],
+            **check_matmul_and_mask(rng, full)}
 
 
-# -- phase 4: data and main path -----------------------------------------------
+# -- phase 4: data and the serving path -----------------------------------------
 
 
 def load_dataset():
@@ -311,7 +383,13 @@ def write_checkpoint(reduced, rng) -> Path:
     return ckpt
 
 
-def phase_main_path(full):
+def check_launches(launches, expected, path):
+    missing = [k for k in expected if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+
+
+def phase_serve(full):
     import torch
 
     from igcn_cf_tpu_torch.data.transforms import dropui
@@ -320,7 +398,7 @@ def phase_main_path(full):
     from igcn_cf_tpu_torch.serve import Recommender
 
     reduced = dropui(full, 0.8)
-    log(f"# main path: full {full.n_users}x{full.n_items} ({len(full)} train), "
+    log(f"# serve path: full {full.n_users}x{full.n_items} ({len(full)} train), "
         f"reduced {reduced.n_users}x{reduced.n_items} ({len(reduced)} train)")
     rng = np.random.default_rng(SEED)
     ckpt = write_checkpoint(reduced, rng)
@@ -352,10 +430,8 @@ def phase_main_path(full):
         log(f"# recommend {n} users k={K}: {latency[n]:.3f} ms median of 5 "
             f"({n / latency[n] * 1e3:.1f} users/s)")
     launches = dict(_build.LAUNCHES)
-    log(f"# launches during the main path: {launches}")
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    log(f"# launches during the serve path: {launches}")
+    check_launches(launches, SERVE_KERNELS, "serve")
 
     # served ids: in range, unique per row, never a train item
     for n, (users, ids) in served.items():
@@ -397,6 +473,217 @@ def phase_main_path(full):
     return launches
 
 
+# -- phase 5: the training path -------------------------------------------------
+
+
+def phase_train(full):
+    """IGCN training through the user's entry points, on the cache engine
+    ('auto': P built and the engines measured at model init), then a few
+    steps on the recompute engine. Returns the cache trainer, the recompute
+    trainer and the launch counts of the whole phase."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build, pcache
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    # the A/B memo in the checkout, emptied: this run measures
+    CACHE_DIR.mkdir(exist_ok=True)
+    pcache.AB_MEMO_PATH = str(CACHE_DIR / "engine_ab.json")
+    Path(pcache.AB_MEMO_PATH).unlink(missing_ok=True)
+
+    _build.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    model = get_model(dict(MODEL_CFG, prop_cache="auto"), full, "cuda")
+    trainer = get_trainer(TRAINER_CFG, full, model)
+    sync()
+    init_s = time.perf_counter() - t0
+    ab = model.engine_ab
+    if not model.pcache or ab is None:
+        raise AssertionError(f"the A/B rejected the cache engine: {ab}")
+    p = trainer.buffers["pcache"]
+    log(f"# train init {init_s:.2f} s: P {tuple(p.shape)} bf16 "
+        f"({p.numel() * 2 / 1e9:.2f} GB) built in {ab['p_build_s']:.3f} s; "
+        f"A/B cached {ab['pcache_ms']:.4f} ms vs recompute "
+        f"{ab['recompute_ms']:.4f} ms per step piece (measured in "
+        f"{ab['ab_measure_s']:.3f} s) -> cache engine")
+
+    _, before = trainer.eval("val")
+    ndcg0 = before["NDCG"][K]
+    old_cwd = os.getcwd()
+    os.chdir(CACHE_DIR)  # the best checkpoint lands in .smoke/checkpoints
+    try:
+        best = trainer.train(verbose=False)
+    finally:
+        os.chdir(old_cwd)
+    rec = trainer.history[0]
+    steps = trainer.steps_per_epoch()
+    losses = trainer.step_losses.float().cpu()
+    if losses.shape != (steps,) or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"bad step losses: {losses}")
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    step_ms = rec["train_s"] / steps * 1e3
+    log(f"# cache engine: 1 epoch of {steps} steps in {rec['train_s']:.3f} s "
+        f"({step_ms:.4f} ms/step, {steps * trainer.batch_size / rec['train_s']:.1f} "
+        f"int/s), loss first 50 {first:.6f} -> last 50 {last:.6f}; val "
+        f"NDCG@{K} untrained {ndcg0:.6f} -> trained {rec['ndcg']:.6f} (eval "
+        f"{rec['val_s']:.3f} s); best {best:.6f}, reloaded, P reused: "
+        f"{trainer.buffers['pcache'] is p}")
+    if not last < first:
+        raise AssertionError("the loss did not fall over the epoch")
+    if not rec["ndcg"] > ndcg0:
+        raise AssertionError("training did not beat the untrained NDCG")
+
+    model_rc = get_model(dict(MODEL_CFG, prop_cache=False), full, "cuda")
+    trainer_rc = get_trainer(TRAINER_CFG, full, model_rc)
+    trainer_rc.train_step(*trainer_rc.sample_step())  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    rc_losses = torch.stack([trainer_rc.train_step(*trainer_rc.sample_step())
+                             for _ in range(RECOMPUTE_STEPS)])
+    sync()
+    rc_ms = (time.perf_counter() - t0) / RECOMPUTE_STEPS * 1e3
+    if not bool(torch.isfinite(rc_losses).all()):
+        raise AssertionError("non-finite loss on the recompute engine")
+    log(f"# recompute engine: {RECOMPUTE_STEPS} steps, {rc_ms:.4f} ms/step "
+        f"({trainer.batch_size / rc_ms * 1e3:.1f} int/s), loss "
+        f"{float(rc_losses[0]):.6f} -> {float(rc_losses[-1]):.6f}")
+    launches = dict(_build.LAUNCHES)
+    log(f"# launches during the train path: {launches}")
+    check_launches(launches, KERNELS, "train")
+    return trainer, trainer_rc, launches
+
+
+# -- phase 6: train checks against the plain versions ---------------------------
+
+
+def check_gather(trainer):
+    """K3/K4 at R = 3 x 2048 batch rows on the real P."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import pcache
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    p = trainer.buffers["pcache"]
+    (users, pos, neg), _, _ = trainer.sample_step()
+    n_users = trainer.model.n_users
+    rows = torch.cat([users, n_users + pos, n_users + neg])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x0b = torch.randn((p.shape[1], 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ctb = torch.randn((rows.shape[0], 64), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for name, kern, plain, x in (("K3", pcache.gather_fwd, pcache.gather_fwd_plain, x0b),
+                                 ("K4", pcache.gather_bwd, pcache.gather_bwd_plain, ctb)):
+        got, want = kern(p, rows, x), plain(p, rows, x)
+        sync()
+        torch.testing.assert_close(got, want, rtol=GATHER_RTOL, atol=GATHER_ATOL)
+        out[name] = {"max_abs_err": float((got - want).abs().max()),
+                     "ms": cuda_ms(lambda: kern(p, rows, x)),
+                     "plain_ms": cuda_ms(lambda: plain(p, rows, x), reps=5)}
+        log(f"# {name} R={rows.shape[0]} on P {tuple(p.shape)}: max_abs_err "
+            f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms vs plain "
+            f"{out[name]['plain_ms']:.4f} ms")
+    again = pcache.gather_bwd(p, rows, ctb)
+    if not torch.equal(again, pcache.gather_bwd(p, rows, ctb)):
+        raise AssertionError("K4 is not deterministic")
+    return out
+
+
+def check_eval_topk(trainer):
+    """K5 at the validation eval's shape (all users x the padded catalog),
+    on the trained representations and the val exclusion words: the ids of
+    the eval's own ``recommend`` against the plain version, in user chunks,
+    and NDCG@K of both id sets."""
+    import torch
+
+    from igcn_cf_tpu_torch.evaluation.evaluate import recommend, retrieval_inputs
+    from igcn_cf_tpu_torch.evaluation.metrics import calculate_metrics_device
+    from igcn_cf_tpu_torch.kernels.retrieval import LI, fused_topk_ids_plain
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    args = (trainer.model, trainer.params, trainer.buffers, trainer.dataset, "val")
+    with torch.no_grad():
+        got = recommend(*args, K)
+        ur, it, ew, banned = retrieval_inputs(*args)
+        n = ur.shape[0]
+        want, same, gap = [], 0, 0.0
+        for a in range(0, n, EVAL_CHECK_CHUNK):
+            sl = slice(a, a + EVAL_CHECK_CHUNK)
+            w = fused_topk_ids_plain(ur[sl], it, ew[sl], banned, k=K)
+            s, g = topk_agree(got[sl], w,
+                              plain_scores(ur[sl], it, ew[sl], banned, LI),
+                              TOPK_RTOL)
+            want.append(w)
+            same, gap = same + s, max(gap, g)
+        ms = cuda_ms(lambda: recommend(*args, K), reps=5)
+    val = trainer.dataset.val
+    ndcg_k = calculate_metrics_device(got, val, [K])["NDCG"][K]
+    ndcg_p = calculate_metrics_device(torch.cat(want), val, [K])["NDCG"][K]
+    # a user's NDCG lies in [0, 1]: the means differ by at most the share of
+    # users whose lists differ
+    if not abs(ndcg_k - ndcg_p) <= (n - same) / n:
+        raise AssertionError(f"eval NDCG@{K} {ndcg_k} through K5 vs {ndcg_p} "
+                             f"plain, with {n - same} of {n} lists differing")
+    log(f"# K5 at the eval's shape: {n} users x {it.shape[1]} padded items, "
+        f"trained reps, val exclusion: {same}/{n} rows identical, max score gap "
+        f"{gap:.3g}; NDCG@{K} {ndcg_k:.6f} vs plain {ndcg_p:.6f}; eval "
+        f"retrieval (reps + K5) {ms:.4f} ms")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the training path's kernel wrappers to their plain versions."""
+    from igcn_cf_tpu_torch.kernels import bitpack, dense_graph, pcache
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, plain in (
+                (bitpack, "t1", bitpack.t1_plain),
+                (bitpack, "t2", bitpack.t2_plain),
+                (dense_graph, "mask_words", bitpack.mask_words_plain),
+                (pcache, "gather_fwd", pcache.gather_fwd_plain),
+                (pcache, "gather_bwd", pcache.gather_bwd_plain)):
+            stack.enter_context(mock.patch.object(mod, name, plain))
+        yield
+
+
+def check_step(trainer, engine):
+    """One step's loss and gradients through the kernels and through the
+    plain versions, on the same batch, mask seeds and token keeps."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+
+    inputs = trainer.sample_step()
+    params = list(trainer.params.values())
+
+    def loss_and_grads():
+        loss = trainer.loss(trainer.params, *inputs)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_k, grads_k = loss_and_grads()
+    before = dict(_build.LAUNCHES)
+    with plain_versions():
+        loss_p, grads_p = loss_and_grads()
+    sync()
+    if dict(_build.LAUNCHES) != before:
+        raise AssertionError("the plain step launched a kernel")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"{engine} step loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    worst = 0.0
+    for name, gk, gp in zip(trainer.params, grads_k, grads_p):
+        err = float((gk - gp).abs().max()) / float(gp.abs().max())
+        worst = max(worst, err)
+        if not err <= STEP_GRAD_REL:
+            raise AssertionError(f"{engine} step grad of {name}: max error "
+                                 f"{err:.3g} of its largest magnitude")
+    log(f"# {engine} step, kernels vs plain versions: loss {float(loss_k):.8f} "
+        f"vs {float(loss_p):.8f} (rel {rel:.3g}); gradients max error "
+        f"{worst:.3g} of their largest magnitude")
+
+
 def main() -> int:
     import torch
 
@@ -406,11 +693,18 @@ def main() -> int:
     full = load_dataset()
     log(f"# data: {time.perf_counter() - t0:.1f} s")
     kern = phase_kernels(full)
-    launches = phase_main_path(full)
+    serve_launches = phase_serve(full)
+    torch.cuda.empty_cache()
+    trainer, trainer_rc, train_launches = phase_train(full)
+    kern.update(check_gather(trainer))
+    check_eval_topk(trainer)
+    check_step(trainer, "cache engine")
+    check_step(trainer_rc, "recompute engine")
     rows = []
     for name, (what, source, replaces) in KERNELS.items():
         rows.append({"name": f"{name} {what}", "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": serve_launches[name] + train_launches[name],
                      "max_abs_err": kern[name]["max_abs_err"],
                      "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]})
     print(json.dumps({"kernels": rows}))

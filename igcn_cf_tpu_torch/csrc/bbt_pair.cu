@@ -200,4 +200,23 @@ int igcn_t2(const void* wp, const void* x2, void* y2, int m, int kw, int d,
   return (int)launch_t2<8>(w, x, y, m, kw, d, s);
 }
 
+// K6 and K7: the unmasked bb_matmul pair of the JAX package,
+// igcn_cf_tpu/kernels/bitpack.py::_fwd_pallas (K6, Y = B @ X) and
+// ::_bwd_pallas (K7, Y = B^T @ X), with masked=False. They compute the
+// products of K1 and K2 on X in its original row-major (n, d) layout, which
+// is what the kernel bodies above read, so the Python wrappers pass X with
+// no transposed copy. The propagation-cache build runs them at d = 128
+// (DPL = 4; 64 KB of K7 shared memory). The in-kernel keep mask of the
+// masked variants (bb_matmul_dropped) is not ported: no ported model uses
+// it yet.
+int igcn_bb_fwd(const void* wp, const void* x, void* y, int m, int kw, int d,
+                void* stream) {
+  return igcn_t1(wp, x, y, m, kw, d, stream);
+}
+
+int igcn_bb_bwd(const void* wp, const void* x, void* y, int m, int kw, int d,
+                void* stream) {
+  return igcn_t2(wp, x, y, m, kw, d, stream);
+}
+
 }  // extern "C"

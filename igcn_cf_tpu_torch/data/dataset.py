@@ -3,9 +3,10 @@
 
 Per-user train/val/test item lists plus a flat ``train_array`` of
 [user, item] pairs. The container never touches a device; graph and mask
-structures are derived from it by the kernels layer. The JAX package's
-evaluator caches are not carried: nothing in the port memoizes on the
-instance yet.
+structures are derived from it by the kernels layer. The evaluator memoizes
+exclusion and eval-list structures on the instance
+(``evaluation/evaluate.py``, ``evaluation/metrics.py``), which is why the
+split lists are never mutated in place.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import numpy as np
 
 @dataclass
 class Interactions:
-    """The split lists must not be mutated in place after construction;
-    derive a new object with ``with_splits`` instead."""
+    """The split lists must not be mutated in place after construction
+    (the evaluator's caches on the instance would go stale); derive a new
+    object with ``with_splits`` instead, which carries no caches."""
 
     name: str
     n_users: int

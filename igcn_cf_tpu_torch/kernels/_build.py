@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
 At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-ctypes. The library lands in ``igcn_cf_tpu_torch/build/`` under a name keyed
-on a hash of the sources and flags, so an edit rebuilds and an unchanged
-tree reuses the library. Nothing is fetched.
+(``sm_90a``), one compiler process per source in parallel, and linked into
+one shared library with a plain C interface, loaded with ctypes. The
+library lands in ``igcn_cf_tpu_torch/build/`` under a name keyed on a hash
+of the sources and flags, so an edit rebuilds and an unchanged tree reuses
+the library. Nothing is fetched.
 
 A missing ``nvcc`` or a failed build raises: a CUDA tensor never falls back
 to a plain version.
@@ -26,15 +27,18 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-shared", "-Xcompiler", "-fPIC", "-std=c++17",
+    "-O3", "-Xcompiler", "-fPIC", "-std=c++17",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # Launches of each kernel, counted by its wrapper right after a launch that
 # returned no error. A run resets them to show which kernels it went through.
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
+            "K8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 # C entry points: every pointer and the stream as c_void_p, every int as
 # c_int; each returns cudaGetLastError() after its launches. The stream is
 # the last argument and is added by ``launch``.
@@ -43,6 +47,16 @@ _SIGNATURES = {
     "igcn_t1": (_P, _P, _P, _I, _I, _I, _P),
     # (wp, x2 (m, d) bf16, y2 (K, d) f32, m, kw, d, stream)
     "igcn_t2": (_P, _P, _P, _I, _I, _I, _P),
+    # (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, stream)
+    "igcn_bb_fwd": (_P, _P, _P, _I, _I, _I, _P),
+    # (wp, x (m, d) bf16, y (K, d) f32, m, kw, d, stream)
+    "igcn_bb_bwd": (_P, _P, _P, _I, _I, _I, _P),
+    # (wp, out, m, kw, seed, thr, stream)
+    "igcn_mask_words": (_P, _P, _I, _I, _U, _I, _P),
+    # (p, rows, x0, part, out, n, npad, r, dpad, splits, stream)
+    "igcn_gather_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (p, rows, ct, dx, n, npad, r, dpad, stream)
+    "igcn_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (users, items_t, excl, banned, part_v, part_i, out,
     #  n_users, n_items_pad, d, k, li, stream)
     "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -84,30 +98,53 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libigcn_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise with the first failure's output."""
+    failed = None
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, stdout + stderr)
+    if failed:
+        cmd, code, text = failed
+        raise RuntimeError(f"nvcc failed with code {code}:\n{' '.join(cmd)}\n"
+                           f"{text}")
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    Returns its path."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one nvcc per source, all started together, then one link. Returns the
+    library's path."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _run(procs)
+        cmd = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -123,6 +160,8 @@ def library() -> ctypes.CDLL:
         lib.igcn_error_string.restype = ctypes.c_char_p
         lib.igcn_fused_topk_chunks.argtypes = [ctypes.c_int]
         lib.igcn_fused_topk_chunks.restype = ctypes.c_int
+        lib.igcn_gather_fwd_splits.argtypes = [ctypes.c_int] * 3
+        lib.igcn_gather_fwd_splits.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -1,5 +1,5 @@
-"""1-bit-packed binary interaction matrix and its transposed product pair
-(port of ``igcn_cf_tpu/kernels/bitpack.py``, forward and unmasked only).
+"""1-bit-packed binary interaction matrix, its product pairs and the
+edge-dropout keep mask (port of ``igcn_cf_tpu/kernels/bitpack.py``).
 
 Packing layout, identical to the JAX package's: columns are grouped in
 TK=4096-wide tiles; within a tile, bit b of word lane w holds column
@@ -20,9 +20,16 @@ bit position of an int32. CUDA reads the same words as ``uint32_t``.
     y1t (d, m) = (B @ X1)^T    from x1t (d, K)   -- kernel K1
     y2t (d, K) = (B^T @ X2)^T  from x2t (d, m)   -- kernel K2
 
+``bbt_pair_premasked(w1, w2, x1t, x2t)`` is the same pair over two
+(dropout-masked) operands; both are autograd functions whose backward is
+the pair with directions swapped. ``bb_matmul(wp, x, transpose)`` is
+B @ X or B^T @ X on row-major (n, d) X -- kernels K6/K7, which the
+propagation-cache build runs. ``mask_words(wp, seed, p)`` applies the
+coordinate-hashed keep mask, bit-identical to the JAX package.
+
 X operands are rounded to bf16 and summed in f32, as the JAX kernels do.
-CUDA tensors go to the hand-written kernels in ``csrc/bbt_pair.cu``; CPU
-tensors go to ``t1_plain``/``t2_plain``.
+CUDA tensors go to the hand-written kernels in ``csrc/`` (``bbt_pair.cu``,
+``mask_words.cu``); CPU tensors go to the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -185,13 +192,208 @@ def t2(wp: torch.Tensor, x2t: torch.Tensor) -> torch.Tensor:
     return t2_plain(wp, x2t)
 
 
+class _PairFn(torch.autograd.Function):
+    """y1t = t1(W1, x1t), y2t = t2(W2, x2t). The backward swaps the
+    directions, and the operands move with them: dx1t (d, K) = dy1t @ W1 is
+    the t2 orientation on W1, dx2t (d, m) = (W2 @ dy2t^T)^T the t1
+    orientation on W2 (``igcn_cf_tpu/kernels/bitpack.py`` ``_bbtp_bwd``).
+    Cotangents are rounded to bf16 like the forward operands."""
+
+    @staticmethod
+    def forward(ctx, w1, w2, x1t, x2t):
+        ctx.save_for_backward(w1, w2)
+        return t1(w1, x1t), t2(w2, x2t)
+
+    @staticmethod
+    def backward(ctx, dy1t, dy2t):
+        w1, w2 = ctx.saved_tensors
+        dx1t = t2(w1, dy1t) if ctx.needs_input_grad[2] else None
+        dx2t = t1(w2, dy2t) if ctx.needs_input_grad[3] else None
+        return None, None, dx1t, dx2t
+
+
+def bbt_pair_premasked(w1: torch.Tensor, w2: torch.Tensor, x1t: torch.Tensor,
+                       x2t: torch.Tensor):
+    """The transposed pair over two packed operands, typically ``mask_words``
+    outputs: y1t (d, m) = (W1 @ x1t^T)^T, y2t (d, K) = (W2^T @ x2t^T)^T,
+    differentiable in x1t and x2t. The feature aggregation's training path."""
+    return _PairFn.apply(w1, w2, x1t, x2t)
+
+
 def bbt_pair(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
     """Both directions of the bit-packed operator in transposed layout:
-    y1t (d, m) = (B @ x1t^T)^T, y2t (d, K) = (B^T @ x2t^T)^T. Forward only:
-    the port serves and does not train yet."""
-    return t1(wp, x1t), t2(wp, x2t)
+    y1t (d, m) = (B @ x1t^T)^T, y2t (d, K) = (B^T @ x2t^T)^T, differentiable
+    in x1t and x2t (the backward is the same pair, directions swapped)."""
+    return _PairFn.apply(wp, wp, x1t, x2t)
 
 
 def bbt_pair_plain(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
-    """``bbt_pair`` through the plain versions on any device."""
+    """``bbt_pair``'s forward through the plain versions on any device."""
     return t1_plain(wp, x1t), t2_plain(wp, x2t)
+
+
+# -- bb_matmul: the original-layout pair (K6/K7), unmasked --------------------
+
+
+def mm_fwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, d) = B @ X with X (K, d) rounded to bf16, f32 sums."""
+    return unpack_bits(wp) @ _bf16_round(x)
+
+
+def mm_bwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Y (K, d) = B^T @ X with X (m, d) rounded to bf16, f32 sums."""
+    return unpack_bits(wp).T @ _bf16_round(x)
+
+
+def _mm_cuda(entry: str, kid: str, wp: torch.Tensor, x: torch.Tensor,
+             n_in: int, n_out: int) -> torch.Tensor:
+    if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
+        raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+    if x.device != wp.device:
+        raise ValueError(f"x is on {x.device}, wp on {wp.device}")
+    if not x.is_floating_point() or x.dim() != 2 or x.shape[0] != n_in:
+        raise ValueError(f"x must be a float ({n_in}, d) tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    m, kw = wp.shape
+    xb = x.to(torch.bfloat16).contiguous()
+    y = torch.empty((n_out, x.shape[1]), dtype=torch.float32, device=wp.device)
+    _build.launch(entry, wp, xb, y, m, kw, x.shape[1])
+    _build.LAUNCHES[kid] += 1
+    return y
+
+
+def mm_fwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K6: Y (m, d) = B @ X, X (K, d) in its own row-major layout."""
+    if _build.on_cuda(wp):
+        return _mm_cuda("igcn_bb_fwd", "K6", wp, x, wp.shape[1] * 32,
+                        wp.shape[0])
+    return mm_fwd_plain(wp, x)
+
+
+def mm_bwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K7: Y (K, d) = B^T @ X, X (m, d), with no transposed copy of B."""
+    if _build.on_cuda(wp):
+        return _mm_cuda("igcn_bb_bwd", "K7", wp, x, wp.shape[0],
+                        wp.shape[1] * 32)
+    return mm_bwd_plain(wp, x)
+
+
+class _MatmulFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wp, x, transpose: bool):
+        ctx.save_for_backward(wp)
+        ctx.transpose = transpose
+        return mm_bwd(wp, x) if transpose else mm_fwd(wp, x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (wp,) = ctx.saved_tensors
+        dx = mm_fwd(wp, ct) if ctx.transpose else mm_bwd(wp, ct)
+        return None, dx, None
+
+
+def bb_matmul(wp: torch.Tensor, x: torch.Tensor,
+              transpose: bool = False) -> torch.Tensor:
+    """B @ x, or B^T @ x with ``transpose``, for the 1-bit-packed B; the
+    gradient in x runs through the other orientation over the same words."""
+    return _MatmulFn.apply(wp, x, transpose)
+
+
+# -- edge-dropout keep mask (bit-identical to the JAX package) ----------------
+
+_C1, _C2, _C3 = 0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35
+_M32 = 0xFFFFFFFF
+
+
+def _threshold_u8(p: float) -> int:
+    """Dropout probability quantized to 1/256 steps (the JAX package's
+    documented deviation: p becomes round(p*256)/256)."""
+    return max(0, min(255, int(round(p * 256))))
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 ``a`` in [0, 2**32) and a u32 constant,
+    split in 16-bit halves so no int64 product overflows."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _salt(i: int) -> int:
+    return (i * 0x9E3779B1 + 1) & _M32
+
+
+def _keepword(seed, rows: torch.Tensor, words: torch.Tensor,
+              thr: int) -> torch.Tensor:
+    """Keep words for broadcastable int64 (row, word) grids, as int64 values
+    in [0, 2**32): u32 arithmetic done in int64 and masked to 32 bits (torch
+    has no uint32 ``>>`` on the CPU). The same 8 salted rounds and bit-sliced
+    ``>= thr`` comparator as ``csrc/keepword.cuh`` and the JAX ``_keepword``.
+    ``seed`` is an int in [0, 2**32)."""
+    base = _mul32(rows, _C1) ^ _mul32(words, _C2)
+    ge = torch.zeros_like(base)
+    eq = torch.full_like(base, _M32)
+    for i in range(7, -1, -1):
+        h = base ^ ((int(seed) + _salt(i)) & _M32)
+        h = _mul32(h ^ (h >> 16), _C3)
+        h = h ^ (h >> 16)
+        if (thr >> i) & 1:
+            eq = eq & h
+        else:
+            ge = ge | (eq & h)
+            eq = eq & (h ^ _M32)
+    return ge | eq
+
+
+def keep_mask_dense(seed: int, n_rows: int, n_cols: int, p: float,
+                    device="cpu") -> torch.Tensor:
+    """Unpacked (n_rows, n_cols) bool keep mask: the same decision the
+    masked words carry, for tests and oracles."""
+    cols = torch.arange(n_cols, dtype=torch.int64, device=device)
+    words = (cols // TK) * TKP + cols % TKP
+    bit = (cols % TK) // TKP
+    rows = torch.arange(n_rows, dtype=torch.int64, device=device)
+    kw = _keepword(seed, rows[:, None], words[None, :], _threshold_u8(p))
+    return ((kw >> bit[None, :]) & 1).bool()
+
+
+def mask_words_plain(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """``wp & keepword(seed, row, word)`` over the whole (m, kw) grid."""
+    m, kw = wp.shape
+    rows = torch.arange(m, dtype=torch.int64, device=wp.device)[:, None]
+    words = torch.arange(kw, dtype=torch.int64, device=wp.device)[None, :]
+    return wp & to_int32_words(_keepword(seed, rows, words, _threshold_u8(p)))
+
+
+def _check_seed(seed) -> int:
+    seed = int(seed)
+    if not 0 <= seed <= _M32:
+        raise ValueError(f"mask seed {seed} is not a u32")
+    return seed
+
+
+def mask_words(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """The packed words with the coordinate-hashed keep mask applied, for
+    edge dropout with probability ``p`` (quantized to 1/256) and a u32
+    ``seed``: bit-identical to the JAX ``mask_words`` given the seed its key
+    yields (``_seed_from_key``). CUDA tensors launch the K8-counterpart
+    kernel (``csrc/mask_words.cu``); CPU tensors take ``mask_words_plain``."""
+    seed = _check_seed(seed)
+    if not _build.on_cuda(wp):
+        return mask_words_plain(wp, seed, p)
+    if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
+        raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+    out = torch.empty_like(wp)
+    _build.launch("igcn_mask_words", wp, out, wp.shape[0], wp.shape[1], seed,
+                  _threshold_u8(p))
+    _build.LAUNCHES["K8"] += 1
+    return out
+
+
+def packed_lookup(packed: torch.Tensor, rows: torch.Tensor,
+                  cols: torch.Tensor) -> torch.Tensor:
+    """Membership B[rows, cols] != 0 read from the packed layout (the
+    negative sampler's O(1) exclusion test)."""
+    cols = cols.long()
+    word = (cols // TK) * TKP + cols % TKP
+    bit = (cols % TK) // TKP
+    return ((packed[rows.long(), word] >> bit.to(torch.int32)) & 1) > 0

@@ -1,4 +1,4 @@
-"""Dense-bipartite graph engine (port of the evaluation path of
+"""Dense-bipartite graph engine (port of
 ``igcn_cf_tpu/kernels/dense_graph.py``).
 
 Every graph matrix of IGCN is the binary user x item pattern B with row-wise
@@ -9,14 +9,20 @@ the symmetric-normalized propagation:
     du, di = max(degree, 1)^-1/2.
 
 Both directions of one step run as one ``bbt_pair`` call (kernels K1/K2) in
-the transposed (d, n) layout of the JAX package. Training (edge dropout, the
-masked operands, gradients) is not ported yet; neither is the sparse COO
-backend (``kernels/sparse.py``).
+the transposed (d, n) layout of the JAX package; ``sym_norm_propagate``
+runs the same step in the original (n, d) layout through ``bb_matmul``
+(K6/K7), as the propagation-cache build does. Every operator here is
+differentiable. Training's edge dropout masks B once per direction
+(``mask_words``); its seeds and token keeps are explicit arguments
+(``FeatDrop``), drawn by the model. The NGCF propagation and the sparse COO
+backend (``kernels/sparse.py``) are not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,7 +31,10 @@ from igcn_cf_tpu_torch.kernels.bitpack import (
     TK,
     TKP,
     TM,
+    bb_matmul,
     bbt_pair,
+    bbt_pair_premasked,
+    mask_words,
     pack_interactions,
     pad_to,
     scatter_bits,
@@ -58,6 +67,9 @@ class BipartiteDense:
     deg_i: torch.Tensor  # (n_items,) f32
     n_users: int
     n_items: int
+    # sha1 of the deduplicated edge set and the shape: two graphs with equal
+    # fingerprints are the same graph
+    fingerprint: str = ""
 
     @staticmethod
     def build(train_array: np.ndarray, n_users: int, n_items: int,
@@ -81,7 +93,9 @@ class BipartiteDense:
         deg_i = torch.zeros(n_items, dtype=torch.float32, device=device)
         deg_u.index_add_(0, rows_t, ones)
         deg_i.index_add_(0, cols_t, ones)
-        return BipartiteDense(packed, deg_u, deg_i, n_users, n_items)
+        fp = hashlib.sha1(np.array([n_users, n_items], np.int64).tobytes()
+                          + uniq.astype(np.int64).tobytes()).hexdigest()
+        return BipartiteDense(packed, deg_u, deg_i, n_users, n_items, fp)
 
     @staticmethod
     def build_host(train_array: np.ndarray, n_users: int, n_items: int,
@@ -109,6 +123,23 @@ class BipartiteDense:
     @property
     def rows_padded(self) -> int:
         return int(self.B.shape[0])
+
+    def mm_ui(self, xi: torch.Tensor) -> torch.Tensor:
+        """B @ xi -> (n_users, d) (kernel K6)."""
+        return bb_matmul(self.B, _pad_rows(xi, self.cols_padded))[: self.n_users]
+
+    def mm_iu(self, xu: torch.Tensor) -> torch.Tensor:
+        """B^T @ xu -> (n_items, d) (kernel K7)."""
+        return bb_matmul(self.B, _pad_rows(xu, self.rows_padded),
+                         True)[: self.n_items]
+
+
+def sym_norm_propagate(g: BipartiteDense, x: torch.Tensor) -> torch.Tensor:
+    """One D^-1/2 A D^-1/2 @ X step in the original (n, d) layout."""
+    su = torch.rsqrt(torch.clamp(g.deg_u, min=1.0))[:, None]
+    si = torch.rsqrt(torch.clamp(g.deg_i, min=1.0))[:, None]
+    xu, xi = x[: g.n_users], x[g.n_users :]
+    return torch.cat([su * g.mm_ui(si * xi), si * g.mm_iu(su * xu)])
 
 
 def _sym_norm_propagate_t(g: BipartiteDense, xt: torch.Tensor) -> torch.Tensor:
@@ -139,6 +170,19 @@ def sym_norm_propagate_mean(
     return (acc / float(n_layers + 1)).T
 
 
+class FeatDrop(NamedTuple):
+    """One draw of the feature aggregation's edge dropout: the u32 mask
+    seeds of the user-side block (``seed_b``, B's train edges as seen from
+    users) and the item-side block (``seed_bt``), and the keeps of the two
+    token edges, (n_users,) and (n_items,) bool. The JAX package derives
+    them from one key as split(key, 4) -> (k_b, k_bt, k_tu, k_ti)."""
+
+    seed_b: int
+    seed_bt: int
+    keep_u: torch.Tensor
+    keep_i: torch.Tensor
+
+
 def feat_aggregate(
     g: BipartiteDense,
     e_items_full: torch.Tensor,  # (n_items, d); zero rows on non-template items
@@ -147,16 +191,38 @@ def feat_aggregate(
     tok_i: torch.Tensor,
     w_u: torch.Tensor,  # (n_users,) annealed row weights
     w_i: torch.Tensor,
+    *,
+    dropout: float = 0.0,
+    drop: Optional[FeatDrop] = None,
 ) -> torch.Tensor:
-    """X0 = feat_mat @ E, the INMO inductive layer, at evaluation (no edge
-    dropout): user rows sum their items' template embeddings plus the user
-    token, item rows their users' plus the item token, each row scaled by
-    its annealed weight. Both directions are one ``bbt_pair`` call."""
+    """X0 = feat_mat @ E, the INMO inductive layer: user rows sum their
+    items' template embeddings plus the user token, item rows their users'
+    plus the item token, each row scaled by its annealed weight. Both
+    directions are one pair call.
+
+    With ``dropout`` > 0 and a ``drop`` draw, the user-side and item-side
+    blocks drop edges independently: B is masked once per direction
+    (``mask_words``, two launches) and the pair runs on the masked copies,
+    in the forward and the backward alike; dropped token edges are zeroed,
+    and the rows rescaled by 1/(1-p) with the unquantized p, as in the JAX
+    package."""
     x1t = _pad_rows(e_items_full, g.cols_padded).T
     x2t = _pad_rows(e_users_full, g.rows_padded).T
-    y1t, y2t = bbt_pair(g.B, x1t, x2t)
-    xu_t = y1t[:, : g.n_users] + tok_u[:, None]
-    xi_t = y2t[:, : g.n_items] + tok_i[:, None]
+    if dropout > 0.0 and drop is not None:
+        scale = 1.0 / (1.0 - dropout)
+        y1t, y2t = bbt_pair_premasked(
+            mask_words(g.B, drop.seed_b, dropout),
+            mask_words(g.B, drop.seed_bt, dropout),
+            x1t, x2t,
+        )
+        xu_t = (y1t[:, : g.n_users]
+                + torch.where(drop.keep_u[None, :], tok_u[:, None], 0.0)) * scale
+        xi_t = (y2t[:, : g.n_items]
+                + torch.where(drop.keep_i[None, :], tok_i[:, None], 0.0)) * scale
+    else:
+        y1t, y2t = bbt_pair(g.B, x1t, x2t)
+        xu_t = y1t[:, : g.n_users] + tok_u[:, None]
+        xi_t = y2t[:, : g.n_items] + tok_i[:, None]
     x0t = torch.cat([w_u[None, :] * xu_t, w_i[None, :] * xi_t], dim=1)
     return x0t.T
 
@@ -181,8 +247,11 @@ def dense_fits(n_users: int, n_items: int, budget: int) -> bool:
 def choose_backend(n_users: int, n_items: int, requested: str = "auto",
                    device="cpu") -> str:
     """'dense' (the bit-packed engine) whenever the packed matrix fits the
-    device's budget. The sparse COO backend is not ported: asking for it,
+    device's budget; 'dense_lean' is accepted as the JAX package's round-1
+    alias of 'dense'. The sparse COO backend is not ported: asking for it,
     or a catalog too large for dense, raises."""
+    if requested == "dense_lean":
+        return "dense"
     if requested not in ("auto", "dense", "sparse"):
         raise ValueError(f"unknown graph backend {requested!r}")
     if requested == "dense" or (

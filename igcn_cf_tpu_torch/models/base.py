@@ -10,7 +10,11 @@ package, so a checkpoint, a refresh or a test can swap either one:
     from ``init_buffers()``.
 
 ``rep(params, buffers, train=False)`` gives the full (n_users + n_items, d)
-node representations; ``forward`` is that call.
+node representations; ``forward`` is that call. Training goes through
+``bpr_pieces(params, buffers, users, pos, neg, train=True, drop=...)``,
+which returns (user_rep, pos_rep, neg_rep, l2 per triple) with autograd;
+``drop`` is the step's dropout draw, from ``draw_drop``. Params are leaf
+tensors with ``requires_grad``; ``torch.optim`` updates them in place.
 
 Checkpoints are the JAX package's pickle, ``{"params": {name: np.ndarray},
 "extra": {...}}``, so each package loads the other's.
@@ -19,7 +23,7 @@ Checkpoints are the JAX package's pickle, ``{"params": {name: np.ndarray},
 from __future__ import annotations
 
 import pickle
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,9 +43,15 @@ def normal_init(generator: Optional[torch.Generator], shape, std=0.1,
     return (std * x).to(device)
 
 
+def l2sq(x: torch.Tensor, dim=None) -> torch.Tensor:
+    return torch.sum(x * x) if dim is None else torch.sum(x * x, dim=dim)
+
+
 class Model(nn.Module):
     """Base model; subclasses implement ``init_params``, ``init_buffers``
-    and ``rep``."""
+    and ``rep``, and trainable ones ``bpr_pieces``."""
+
+    trainable: bool = True
 
     def __init__(self, config: dict, dataset, device="cpu"):
         super().__init__()
@@ -68,6 +78,19 @@ class Model(nn.Module):
 
     def forward(self, params: Params, buffers: Buffers) -> torch.Tensor:
         return self.rep(params, buffers, train=False)
+
+    def bpr_pieces(self, params: Params, buffers: Buffers, users, pos, neg, *,
+                   train: bool, drop=None) -> Tuple[torch.Tensor, ...]:
+        raise NotImplementedError
+
+    def draw_drop(self, keys, generator: torch.Generator):
+        """One train step's dropout draw (None: the model drops nothing)."""
+        return None
+
+    # -- epoch hook (INMO anneal); default no-op ----------------------------
+
+    def epoch_update(self, buffers: Buffers) -> Buffers:
+        return buffers
 
     def refresh_buffers(self, buffers: Buffers) -> Buffers:
         """Re-derive buffers after a checkpoint load (models whose buffers

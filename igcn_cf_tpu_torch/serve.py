@@ -60,7 +60,9 @@ class Recommender:
         """Load a checkpoint over the CURRENT dataset: template maps come from
         the checkpoint, graph structures from the dataset, so users and items
         unseen at training time are served at once."""
-        model = get_model(dict(model_config), dataset, device)
+        # serving never trains: the propagation cache is training-only, so
+        # the multi-GB build is not spent on it
+        model = get_model(dict(model_config, prop_cache=False), dataset, device)
         params = model.load(path)
         buffers = model.refresh_buffers(model.init_buffers())
         return cls(model, params, buffers, exclude=exclude)

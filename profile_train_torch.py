@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's IGCN train step spends its time, on one CUDA
+card.
+
+Run from the root of a checkout:
+
+    python3 profile_train_torch.py [--out .smoke/profile_train.txt]
+
+It takes ``chip_smoke.py``'s training scenario: the Gowalla-scale synthetic
+catalog (seed 2021), IGCN at the Gowalla preset (d=64, 3 layers, dropout
+0.3), IGCNTrainer at batch 2048. For each engine (the propagation cache,
+then recompute) it warms up with 20 steps and prints:
+
+  - the step's wall ms, median of 50 steps, each ended by a synchronize;
+  - the medians of its pieces, each timed alone after a synchronize:
+    sampling and drop draws, forward (loss), backward, the Adam step;
+  - ``torch.profiler`` over 20 steps: the device time of each kernel and
+    copy, their sum, and its share of wall (the device's busy share).
+
+The full profiler tables go to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+from pathlib import Path
+
+import chip_smoke as smoke
+from profile_serve_torch import device_profile
+
+WARMUP, TIMED, PROFILED = 20, 50, 20
+
+
+def piece_medians(trainer, reps=TIMED):
+    """Median ms of each piece of a step, and of the whole step."""
+    import torch
+
+    pieces = {"sample": [], "forward": [], "backward": [], "adam": [],
+              "step": []}
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(reps):
+        t0 = clock()
+        inputs = trainer.sample_step()
+        t1 = clock()
+        trainer.opt.zero_grad(set_to_none=True)
+        loss = trainer.loss(trainer.params, *inputs)
+        t2 = clock()
+        loss.backward()
+        t3 = clock()
+        trainer.opt.step()
+        t4 = clock()
+        for name, a, b in (("sample", t0, t1), ("forward", t1, t2),
+                           ("backward", t2, t3), ("adam", t3, t4)):
+            pieces[name].append((b - a) * 1e3)
+        t5 = clock()
+        trainer.train_step(*trainer.sample_step())
+        pieces["step"].append((clock() - t5) * 1e3)
+    return {k: statistics.median(v) for k, v in pieces.items()}
+
+
+def main() -> int:
+    import torch
+
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=".smoke/profile_train.txt")
+    args = ap.parse_args()
+
+    smi = smoke.phase_device()
+    smoke.phase_build()
+    full = smoke.load_dataset()
+    lines = [f"# nvidia-smi: {smi}"]
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "w") as out:
+        for engine, prop_cache in (("cache", True), ("recompute", False)):
+            model = get_model(dict(smoke.MODEL_CFG, prop_cache=prop_cache),
+                              full, "cuda")
+            trainer = get_trainer(smoke.TRAINER_CFG, full, model)
+            for _ in range(WARMUP):
+                trainer.train_step(*trainer.sample_step())
+            med = piece_medians(trainer)
+            batch = trainer.batch_size
+            lines.append(
+                f"# {engine} engine: step {med['step']:.4f} ms median of "
+                f"{TIMED} ({batch / med['step'] * 1e3:.1f} int/s); pieces "
+                + ", ".join(f"{k} {v:.4f}" for k, v in med.items() if k != "step")
+                + " ms")
+            wall, dev, rows = device_profile(
+                lambda: [trainer.train_step(*trainer.sample_step())
+                         for _ in range(PROFILED)],
+                f"{engine} engine, {PROFILED} steps", out)
+            lines.append(f"# {engine} engine, {PROFILED} steps under the "
+                         f"profiler: wall {wall:.3f} ms, device {dev:.3f} ms, "
+                         f"busy share {dev / wall:.4f}")
+            for name, calls, ms in rows[:10]:
+                lines.append(f"#   {ms:9.3f} ms  {calls:4d} x  {name[:80]}")
+            del trainer, model
+            torch.cuda.empty_cache()
+    for line in lines:
+        print(line, flush=True)
+    print(f"# tables: {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

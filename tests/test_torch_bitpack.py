@@ -205,6 +205,8 @@ def test_choose_backend():
         dense_graph.choose_backend(60, 80, "sparse")
     with pytest.raises(NotImplementedError, match="sparse"):
         dense_graph.choose_backend(10**6, 10**6)  # too large for the budget
+    # the JAX package's round-1 alias (dense_graph.py:327-328)
+    assert dense_graph.choose_backend(60, 80, "dense_lean") == "dense"
     with pytest.raises(ValueError):
-        dense_graph.choose_backend(60, 80, "dense_lean")
+        dense_graph.choose_backend(60, 80, "dense_fast")
     assert dense_graph.dense_budget_bytes("cpu") == dense_graph.CPU_DENSE_BUDGET_BYTES

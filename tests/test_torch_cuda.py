@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from igcn_cf_tpu_torch.kernels import _build, bitpack, retrieval
+from igcn_cf_tpu_torch.kernels import _build, bitpack, pcache, retrieval
 from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
+
+# K3/K4 and K6/K7 against plain f32 matmuls of the same bf16 operands: only
+# the order of the f32 sums differs (mma tiles vs matmul)
+GATHER_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
 @pytest.fixture()
@@ -126,3 +130,114 @@ def test_cuda_wrappers_refuse_bad_operands(cuda):
         retrieval.fused_topk_ids(ur, it.T.contiguous().T, excl, banned, k=5)
     with pytest.raises(ValueError):
         retrieval.fused_topk_ids(ur, it, excl, banned, k=129)
+
+
+@pytest.mark.parametrize("n_users,n_items,nnz,d", [
+    (300, 400, 12000, 128),    # the build's block width
+    (1100, 9000, 30000, 64),
+])
+def test_bb_matmul_kernels_match_plain(cuda, n_users, n_items, nnz, d):
+    rng = np.random.default_rng(n_users + d)
+    g = _graph(rng, n_users, n_items, nnz, cuda)
+    m, kw = g.B.shape
+    x_cols = torch.randn(kw * 32, d, device=cuda)
+    x_rows = torch.randn(m, d, device=cuda)
+    before = dict(_build.LAUNCHES)
+    got_f = bitpack.mm_fwd(g.B, x_cols)
+    got_b = bitpack.mm_bwd(g.B, x_rows)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K6"] == before["K6"] + 1
+    assert _build.LAUNCHES["K7"] == before["K7"] + 1
+    torch.testing.assert_close(got_f, bitpack.mm_fwd_plain(g.B, x_cols),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_b, bitpack.mm_bwd_plain(g.B, x_rows),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,seed,p", [
+    ((512, 128), 0, 0.3),
+    ((1536, 384), 2**32 - 1, 0.3),
+    ((512, 256), 2**32 - 77, 0.7),
+])
+def test_mask_words_kernel_is_bit_exact(cuda, shape, seed, p):
+    gen = torch.Generator(device=cuda).manual_seed(shape[0])
+    wp = torch.randint(-2**31, 2**31, shape, generator=gen, device=cuda,
+                       dtype=torch.int64).to(torch.int32)
+    wp[::3] = 0  # zero words skip the hash
+    before = _build.LAUNCHES["K8"]
+    got = bitpack.mask_words(wp, seed, p)
+    want = bitpack.mask_words_plain(wp, seed, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K8"] == before + 1
+    assert torch.equal(got, want)
+
+
+def _gather_case(cuda, n, r, dup):
+    gen = torch.Generator(device=cuda).manual_seed(n + r)
+    npad = pcache.pcache_npad(n)
+    p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=gen, device=cuda)
+    if dup:
+        rows[r // 2:] = rows[: r - r // 2]  # every id at least twice
+    return p, rows
+
+
+@pytest.mark.parametrize("n,r,d,dup", [
+    (700, 300, 64, True),     # ragged R, duplicate rows
+    (5000, 1000, 40, False),  # d padded to the kernel tile
+])
+def test_gather_kernels_match_plain(cuda, n, r, d, dup):
+    p, rows = _gather_case(cuda, n, r, dup)
+    npad = p.shape[1]
+    x0b = torch.randn((npad, d), device=cuda).to(torch.bfloat16)
+    ctb = torch.randn((r, d), device=cuda).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    got_f = pcache.gather_fwd(p, rows, x0b)
+    got_b = pcache.gather_bwd(p, rows, ctb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K3"] == before["K3"] + 1
+    assert _build.LAUNCHES["K4"] == before["K4"] + 1
+    assert got_f.shape == (r, d) and got_b.shape == (npad, d)
+    torch.testing.assert_close(got_f, pcache.gather_fwd_plain(p, rows, x0b),
+                               **GATHER_TOL)
+    torch.testing.assert_close(got_b, pcache.gather_bwd_plain(p, rows, ctb),
+                               **GATHER_TOL)
+
+
+def test_gather_bwd_kernel_is_deterministic(cuda):
+    p, rows = _gather_case(cuda, 3000, 2048, True)
+    ctb = torch.randn((2048, 64), device=cuda).to(torch.bfloat16)
+    assert torch.equal(pcache.gather_bwd(p, rows, ctb),
+                       pcache.gather_bwd(p, rows, ctb))
+
+
+def test_cached_prop_grad_matches_plain(cuda):
+    p, rows = _gather_case(cuda, 900, 200, True)
+    x0 = torch.randn((900, 64), device=cuda, requires_grad=True)
+    ct = torch.randn((200, 64), device=cuda)
+    pcache.cached_prop(p, rows, x0).backward(ct)
+    want = pcache.gather_bwd_plain(p, rows, ct.to(torch.bfloat16))[:900]
+    torch.testing.assert_close(x0.grad, want, **GATHER_TOL)
+
+
+def test_new_wrappers_refuse_bad_operands(cuda):
+    p = torch.zeros((100, 128), dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(10, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        pcache.gather_fwd(p.float(), rows, torch.zeros(128, 8, device=cuda))
+    with pytest.raises(ValueError):
+        pcache.gather_fwd(p, rows, torch.zeros(100, 8, device=cuda))  # npad
+    with pytest.raises(ValueError):
+        pcache.gather_bwd(p, rows[:, None], torch.zeros(10, 8, device=cuda))
+    with pytest.raises(ValueError):
+        pcache.gather_bwd(p[:, :100].contiguous(), rows,
+                          torch.zeros(10, 8, device=cuda))
+    wp = torch.zeros((512, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bitpack.mask_words(wp.to(torch.int64), 1, 0.3)
+    with pytest.raises(ValueError):
+        bitpack.mask_words(wp, 2**32, 0.3)
+    with pytest.raises(ValueError):
+        bitpack.mm_fwd(wp, torch.zeros(100, 8, device=cuda))
+    with pytest.raises(ValueError):
+        bitpack.mm_bwd(wp, torch.zeros(4096, 8, device=cuda))

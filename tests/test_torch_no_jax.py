@@ -1,5 +1,5 @@
-"""igcn_cf_tpu_torch, chip_smoke.py and profile_serve_torch.py run where jax
-is not installed: they import neither jax nor the JAX package."""
+"""igcn_cf_tpu_torch, chip_smoke.py and the profilers run where jax is not
+installed: they import neither jax nor the JAX package."""
 
 import os
 import subprocess
@@ -19,7 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(igcn_cf_tpu_torch.__path__,
                                                "igcn_cf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, profile_serve_torch
+import chip_smoke, profile_serve_torch, profile_train_torch
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "igcn_cf_tpu")
                 and sys.modules[m] is not None)
@@ -33,14 +33,37 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 12
+    assert int(n_modules) >= 25
     assert loaded.strip() == "[]"
+
+
+_TRAIN_PROBE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["igcn_cf_tpu"] = None
+import importlib
+importlib.import_module(sys.argv[1])
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax")
+             and sys.modules[m] is not None))
+"""
+
+
+@pytest.mark.parametrize("module", ["igcn_cf_tpu_torch.train.bpr",
+                                    "igcn_cf_tpu_torch.kernels.pcache",
+                                    "igcn_cf_tpu_torch.evaluation.evaluate"])
+def test_training_modules_import_without_jax(module):
+    """Each entry of the training path, imported alone, pulls in no jax."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE, module], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(ROOT).as_posix()
     for p in [*ROOT.glob("igcn_cf_tpu_torch/**/*.py"), ROOT / "chip_smoke.py",
-              ROOT / "profile_serve_torch.py"]
+              ROOT / "profile_serve_torch.py", ROOT / "profile_train_torch.py"]
 ))
 def test_source_names_no_jax_import(path):
     text = (ROOT / path).read_text()

@@ -204,11 +204,15 @@ def test_recommend_refuses_bad_requests(port_tiny):
 
 
 def test_training_paths_are_not_ported(port_tiny):
+    """Training is ported now (tests/test_torch_train.py): the train rep
+    carries gradients and the propagation cache builds. The sparse backend
+    is still not ported, and serving never builds the cache."""
     pm = get_model(dict(MODEL_CFG), port_tiny)
     pp, pb = pm.init_params(), pm.init_buffers()
-    with pytest.raises(NotImplementedError):
-        pm.rep(pp, pb, train=True)
-    with pytest.raises(NotImplementedError):
-        get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    pp["embedding"].requires_grad_()
+    assert pm.rep(pp, pb, train=True).requires_grad
+    assert not pm.rep(pp, pb, train=False).requires_grad
+    cached = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    assert cached.pcache and "pcache" in cached.init_buffers()
     with pytest.raises(NotImplementedError, match="sparse"):
         get_model(dict(MODEL_CFG, graph_backend="sparse"), port_tiny)
