@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's IGCN serving and training paths once on one
-NVIDIA H100.
+"""Drive the PyTorch port's IGCN serving and training paths, and LightGCN
+and NGCF training, once on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -12,10 +12,12 @@ Phases, each fatal on failure:
      limit as nvidia-smi reports them.
   2. build   -- compile ``igcn_cf_tpu_torch/csrc/*.cu`` with nvcc.
   3. kernels -- K1, K2 (the bit-packed pair), K5 (fused retrieval), K6/K7
-     (bb_matmul at the cache build's 128-wide block) and the K8 counterpart
-     (the dropout mask over the full B, bit-equal) against their plain
-     PyTorch versions on the card, at the slice's shapes, with median times
-     of both.
+     (bb_matmul at the cache build's 128-wide block), K6m/K7m (the masked
+     bb_matmul on the full B at NGCF's d=64 and p=0.1; also bit-equal to
+     K6/K7 over the mask_words copy of B) and the K8 counterpart (the
+     dropout mask over the full B, bit-equal) against their plain PyTorch
+     versions on the card, at the slice's shapes, with median times of
+     both.
   4. serve path -- the Gowalla-scale synthetic catalog (seed 2021), an IGCN
      checkpoint (d=64, 3 layers) with weights from a numpy seed, then
      ``Recommender.from_checkpoint`` over the dropui (80%) catalog,
@@ -38,7 +40,21 @@ Phases, each fatal on failure:
      version, with NDCG@20 of both id sets; one train step on each engine
      through the kernels against the same step through the plain versions
      (same batch, same seeds): loss and gradients.
-  7. output  -- a JSON line of the kernels, the nvidia-smi line, and last
+  7. LightGCN and NGCF -- with the IGCN trainers and their P freed, each at
+     its Gowalla preset (LightGCN d=64, 3 layers, prop_cache 'auto'; NGCF
+     d=64, layer sizes [64, 64, 64], dropout 0.1; BPRTrainer batch 2048,
+     Adam lr 1e-3) trains one epoch through ``get_model(...)`` and
+     ``get_trainer(...).train()``. The losses must be finite and fall, and
+     val NDCG@20 must beat the untrained model's. LightGCN must launch
+     K3/K4 on every step (the cache engine), NGCF K6m/K7m six times each
+     per step (three layers, forward and backward). After each epoch, K5
+     at that model's eval shape (d=64, then NGCF's d=256) against its plain
+     version, as in phase 6; then one NGCF step through the kernels against
+     the same step through the plain versions.
+
+Every model and trainer config is the user's Gowalla preset from
+``configs.get_config``, cut to one epoch.
+  8. output  -- a JSON line of the kernels, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 
 The dataset is cached in ``.smoke/`` (generated in about a minute if absent).
@@ -66,14 +82,10 @@ os.environ["CUDA_VISIBLE_DEVICES"] = (
 ROOT = Path(__file__).resolve().parent
 CACHE_DIR = ROOT / ".smoke"
 
-# the serving slice (bench.py:41-43 shape, configs/presets.py IGCN width)
+# the serving slice (bench.py:41-43 shape)
 N_USERS, N_ITEMS, AVG_DEG, SEED = 29858, 40981, 34.4, 2021
-MODEL_CFG = {"name": "IGCN", "embedding_size": 64, "n_layers": 3,
-             "dropout": 0.3, "feature_ratio": 1.0}
-# the Gowalla preset's trainer (configs/presets.py:52), one epoch
-TRAINER_CFG = {"name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3,
-               "l2_reg": 0.0, "aux_reg": 0.01, "n_epochs": 1,
-               "batch_size": 2048, "topks": [20], "seed": SEED}
+# each model's index among the Gowalla presets (configs.get_config)
+PRESETS = {"LightGCN": 1, "IGCN": 2, "NGCF": 4}
 RECOMPUTE_STEPS = 20
 REQUEST_SIZES = (512, 4096)
 K = 20
@@ -105,11 +117,19 @@ KERNELS = {
            "igcn_cf_tpu/kernels/bitpack.py:275"),
     "K7": ("bb_matmul bwd: B^T @ X (unmasked)", "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
            "igcn_cf_tpu/kernels/bitpack.py:306"),
+    "K6m": ("bb_matmul_dropped fwd: (B o M) @ X, keep mask in the kernel",
+            "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
+            "igcn_cf_tpu/kernels/bitpack.py:275"),
+    "K7m": ("bb_matmul_dropped bwd: (B o M)^T @ X, keep mask in the kernel",
+            "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
+            "igcn_cf_tpu/kernels/bitpack.py:306"),
     "K8": ("mask_words: B & keepword (counterpart of mask_words_hw)",
            "igcn_cf_tpu_torch/csrc/mask_words.cu",
            "igcn_cf_tpu/kernels/bitpack.py:609"),
 }
 SERVE_KERNELS = ("K1", "K2", "K5")
+TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+GCN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
 
 
 def log(msg: str) -> None:
@@ -120,6 +140,16 @@ def sync() -> None:
     import torch
 
     torch.cuda.synchronize()
+
+
+def gowalla_preset(name):
+    """The model and trainer configs of ``name``'s Gowalla preset, as a user
+    takes them from ``configs.get_config``, cut to one epoch under the
+    smoke's seed."""
+    from igcn_cf_tpu_torch.configs import get_config
+
+    _, model_cfg, trainer_cfg = get_config("gowalla", PRESETS[name])
+    return model_cfg, dict(trainer_cfg, n_epochs=1, seed=SEED)
 
 
 # -- phase 1: device ------------------------------------------------------------
@@ -278,8 +308,10 @@ def check_topk(rng, n, n_items, nip, li, d, k, timed):
 
 
 def check_matmul_and_mask(rng, full):
-    """K6/K7 at one 128-wide block of the real B (the cache build's shape),
-    and the K8 counterpart over the full B, bit-equal."""
+    """K6/K7 at one 128-wide block of the real B (the cache build's shape);
+    the K8 counterpart over the full B, bit-equal; K6m/K7m on the full B at
+    NGCF's width and dropout against their plain versions, and bit-equal to
+    K6/K7 over the mask_words copy of B."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import bitpack
@@ -302,28 +334,54 @@ def check_matmul_and_mask(rng, full):
             f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms vs plain "
             f"{out[name]['plain_ms']:.4f} ms")
     seed = 2**32 - 12345  # near the top of the u32 range
-    got = bitpack.mask_words(g.B, seed, MODEL_CFG["dropout"])
-    want = bitpack.mask_words_plain(g.B, seed, MODEL_CFG["dropout"])
+    p = gowalla_preset("IGCN")[0]["dropout"]
+    got = bitpack.mask_words(g.B, seed, p)
+    want = bitpack.mask_words_plain(g.B, seed, p)
     sync()
     if not torch.equal(got, want):
         raise AssertionError("K8 mask differs from its plain version")
     kept = int(bitpack.unpack_bits(got[:2048]).sum())
     total = int(bitpack.unpack_bits(g.B[:2048]).sum())
     out["K8"] = {"max_abs_err": 0.0,
-                 "ms": cuda_ms(lambda: bitpack.mask_words(g.B, seed, 0.3)),
-                 "plain_ms": cuda_ms(lambda: bitpack.mask_words_plain(g.B, seed, 0.3),
+                 "ms": cuda_ms(lambda: bitpack.mask_words(g.B, seed, p)),
+                 "plain_ms": cuda_ms(lambda: bitpack.mask_words_plain(g.B, seed, p),
                                      reps=5)}
-    log(f"# K8 mask over B {m}x{kw} words: bit-equal, kept {kept}/{total} "
-        f"edges of the first 2048 rows (expect {1 - 77 / 256:.4f}), "
-        f"{out['K8']['ms']:.4f} ms vs plain {out['K8']['plain_ms']:.4f} ms")
+    log(f"# K8 mask over B {m}x{kw} words, p={p}: bit-equal, kept "
+        f"{kept}/{total} edges of the first 2048 rows (expect "
+        f"{1 - round(p * 256) / 256:.4f}), {out['K8']['ms']:.4f} ms vs plain "
+        f"{out['K8']['plain_ms']:.4f} ms")
+
+    ngcf = gowalla_preset("NGCF")[0]
+    d, p, seed = ngcf["embedding_size"], ngcf["dropout"], 2**32 - 777
+    premasked = bitpack.mask_words(g.B, seed, p)
+    for name, kern, plain, unmasked, rows in (
+            ("K6m", bitpack.mm_fwd_masked, bitpack.mm_fwd_masked_plain,
+             bitpack.mm_fwd, kw * 32),
+            ("K7m", bitpack.mm_bwd_masked, bitpack.mm_bwd_masked_plain,
+             bitpack.mm_bwd, m)):
+        x = torch.as_tensor(rng.standard_normal((rows, d), np.float32)).to("cuda")
+        got, want = kern(g.B, x, seed, p), plain(g.B, x, seed, p)
+        sync()
+        torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+        if not torch.equal(got, unmasked(premasked, x)):
+            raise AssertionError(f"{name} differs from the unmasked kernel over "
+                                 "the mask_words copy of B")
+        out[name] = {"max_abs_err": float((got - want).abs().max()),
+                     "ms": cuda_ms(lambda: kern(g.B, x, seed, p)),
+                     "plain_ms": cuda_ms(lambda: plain(g.B, x, seed, p), reps=3,
+                                         warmup=1)}
+        log(f"# {name} B {m}x{kw} words, X {rows}x{d}, p={p}: max_abs_err "
+            f"{out[name]['max_abs_err']:.3g}, bit-equal to the unmasked kernel "
+            f"over mask_words(B), {out[name]['ms']:.4f} ms vs plain "
+            f"{out[name]['plain_ms']:.4f} ms")
     return out
 
 
 def phase_kernels(full):
     """Small random cases, then the slice's shapes: K1/K2 on the full
     catalog's interaction matrix (its skewed item degrees included), K5 at
-    both request sizes, K6/K7 at the cache build's block, the mask on the
-    full B. K3/K4 are checked on the real P in phase 6."""
+    both request sizes, K6/K7 at the cache build's block, the mask and
+    K6m/K7m on the full B. K3/K4 are checked on the real P in phase 6."""
     rng = np.random.default_rng(0)
     check_pair(rng, random_pairs(rng, 300, 400, 12000), 300, 400, 16, timed=False)
     pair = check_pair(rng, full.train_array, full.n_users, full.n_items, 64,
@@ -372,8 +430,9 @@ def write_checkpoint(reduced, rng) -> Path:
 
     from igcn_cf_tpu_torch.models.base import get_model
 
-    model = get_model(MODEL_CFG, reduced, "cuda")
-    d = MODEL_CFG["embedding_size"]
+    model_cfg = gowalla_preset("IGCN")[0]
+    model = get_model(model_cfg, reduced, "cuda")
+    d = model_cfg["embedding_size"]
     emb = (0.1 * rng.standard_normal((model.n_templates, d))).astype(np.float32)
     params = {"embedding": torch.as_tensor(emb).to("cuda"),
               "w": torch.ones(d, device="cuda")}
@@ -406,8 +465,8 @@ def phase_serve(full):
     _build.reset_launches()
     sync()
     t0 = time.perf_counter()
-    rec = Recommender.from_checkpoint(str(ckpt), MODEL_CFG, reduced,
-                                      device="cuda")
+    rec = Recommender.from_checkpoint(str(ckpt), gowalla_preset("IGCN")[0],
+                                      reduced, device="cuda")
     load_s = time.perf_counter() - t0
     refresh_grown_s = rec.refresh(full)
     refresh_steady_s = rec.refresh(full)
@@ -476,6 +535,65 @@ def phase_serve(full):
 # -- phase 5: the training path -------------------------------------------------
 
 
+def train_one_epoch(name, model_cfg, trainer_cfg, full, cache_engine=False):
+    """One epoch of ``model_cfg`` through the user's entry points, after the
+    untrained model's val NDCG: the losses must be finite and fall, and the
+    NDCG must rise. With ``cache_engine`` the model must train through P
+    (for 'auto', the measured A/B's choice). Returns the trainer and the
+    launches of the training loop alone (its eval included)."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    sync()
+    t0 = time.perf_counter()
+    model = get_model(model_cfg, full, "cuda")
+    trainer = get_trainer(trainer_cfg, full, model)
+    sync()
+    init_s = time.perf_counter() - t0
+    p, ab = trainer.buffers.get("pcache"), getattr(model, "engine_ab", None)
+    if cache_engine and p is None:
+        raise AssertionError(f"{name}: the A/B rejected the cache engine: {ab}")
+    _, before = trainer.eval("val")
+    ndcg0 = before["NDCG"][K]
+    start = dict(_build.LAUNCHES)
+    old_cwd = os.getcwd()
+    os.chdir(CACHE_DIR)  # the best checkpoint lands in .smoke/checkpoints
+    try:
+        best = trainer.train(verbose=False)
+    finally:
+        os.chdir(old_cwd)
+    launches = {k: v - start[k] for k, v in _build.LAUNCHES.items()}
+    rec = trainer.history[0]
+    steps = trainer.steps_per_epoch()
+    losses = trainer.step_losses.float().cpu()
+    if losses.shape != (steps,) or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{name}: bad step losses: {losses}")
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    step_ms = rec["train_s"] / steps * 1e3
+    log(f"# {name}: init {init_s:.3f} s"
+        + (f"; P {tuple(p.shape)} bf16 ({p.numel() * 2 / 1e9:.2f} GB) built in "
+           f"{ab['p_build_s']:.3f} s; A/B cached {ab['pcache_ms']:.4f} ms vs "
+           f"recompute {ab['recompute_ms']:.4f} ms per step piece (measured in "
+           f"{ab['ab_measure_s']:.3f} s) -> cache engine"
+           if p is not None and ab else "")
+        + f"; 1 epoch of {steps} steps in {rec['train_s']:.3f} s ({step_ms:.4f} "
+        f"ms/step, {steps * trainer.batch_size / rec['train_s']:.1f} int/s), loss "
+        f"first 50 {first:.6f} -> last 50 {last:.6f}; val NDCG@{K} untrained "
+        f"{ndcg0:.6f} -> trained {rec['ndcg']:.6f} (eval {rec['val_s']:.3f} s); "
+        f"best {best:.6f}, reloaded"
+        + (f", P reused: {trainer.buffers.get('pcache') is p}"
+           if p is not None else "")
+        + f"; launches in the epoch {launches}")
+    if not last < first:
+        raise AssertionError(f"{name}: the loss did not fall over the epoch")
+    if not rec["ndcg"] > ndcg0:
+        raise AssertionError(f"{name}: training did not beat the untrained NDCG")
+    return trainer, launches
+
+
 def phase_train(full):
     """IGCN training through the user's entry points, on the cache engine
     ('auto': P built and the engines measured at model init), then a few
@@ -492,51 +610,13 @@ def phase_train(full):
     pcache.AB_MEMO_PATH = str(CACHE_DIR / "engine_ab.json")
     Path(pcache.AB_MEMO_PATH).unlink(missing_ok=True)
 
+    model_cfg, trainer_cfg = gowalla_preset("IGCN")
     _build.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    model = get_model(dict(MODEL_CFG, prop_cache="auto"), full, "cuda")
-    trainer = get_trainer(TRAINER_CFG, full, model)
-    sync()
-    init_s = time.perf_counter() - t0
-    ab = model.engine_ab
-    if not model.pcache or ab is None:
-        raise AssertionError(f"the A/B rejected the cache engine: {ab}")
-    p = trainer.buffers["pcache"]
-    log(f"# train init {init_s:.2f} s: P {tuple(p.shape)} bf16 "
-        f"({p.numel() * 2 / 1e9:.2f} GB) built in {ab['p_build_s']:.3f} s; "
-        f"A/B cached {ab['pcache_ms']:.4f} ms vs recompute "
-        f"{ab['recompute_ms']:.4f} ms per step piece (measured in "
-        f"{ab['ab_measure_s']:.3f} s) -> cache engine")
-
-    _, before = trainer.eval("val")
-    ndcg0 = before["NDCG"][K]
-    old_cwd = os.getcwd()
-    os.chdir(CACHE_DIR)  # the best checkpoint lands in .smoke/checkpoints
-    try:
-        best = trainer.train(verbose=False)
-    finally:
-        os.chdir(old_cwd)
-    rec = trainer.history[0]
-    steps = trainer.steps_per_epoch()
-    losses = trainer.step_losses.float().cpu()
-    if losses.shape != (steps,) or not bool(torch.isfinite(losses).all()):
-        raise AssertionError(f"bad step losses: {losses}")
-    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
-    step_ms = rec["train_s"] / steps * 1e3
-    log(f"# cache engine: 1 epoch of {steps} steps in {rec['train_s']:.3f} s "
-        f"({step_ms:.4f} ms/step, {steps * trainer.batch_size / rec['train_s']:.1f} "
-        f"int/s), loss first 50 {first:.6f} -> last 50 {last:.6f}; val "
-        f"NDCG@{K} untrained {ndcg0:.6f} -> trained {rec['ndcg']:.6f} (eval "
-        f"{rec['val_s']:.3f} s); best {best:.6f}, reloaded, P reused: "
-        f"{trainer.buffers['pcache'] is p}")
-    if not last < first:
-        raise AssertionError("the loss did not fall over the epoch")
-    if not rec["ndcg"] > ndcg0:
-        raise AssertionError("training did not beat the untrained NDCG")
-
-    model_rc = get_model(dict(MODEL_CFG, prop_cache=False), full, "cuda")
-    trainer_rc = get_trainer(TRAINER_CFG, full, model_rc)
+    trainer, _ = train_one_epoch("IGCN cache engine",
+                                 dict(model_cfg, prop_cache="auto"),
+                                 trainer_cfg, full, cache_engine=True)
+    model_rc = get_model(dict(model_cfg, prop_cache=False), full, "cuda")
+    trainer_rc = get_trainer(trainer_cfg, full, model_rc)
     trainer_rc.train_step(*trainer_rc.sample_step())  # warm-up
     sync()
     t0 = time.perf_counter()
@@ -551,7 +631,7 @@ def phase_train(full):
         f"{float(rc_losses[0]):.6f} -> {float(rc_losses[-1]):.6f}")
     launches = dict(_build.LAUNCHES)
     log(f"# launches during the train path: {launches}")
-    check_launches(launches, KERNELS, "train")
+    check_launches(launches, TRAIN_KERNELS, "train")
     return trainer, trainer_rc, launches
 
 
@@ -590,11 +670,11 @@ def check_gather(trainer):
     return out
 
 
-def check_eval_topk(trainer):
-    """K5 at the validation eval's shape (all users x the padded catalog),
-    on the trained representations and the val exclusion words: the ids of
-    the eval's own ``recommend`` against the plain version, in user chunks,
-    and NDCG@K of both id sets."""
+def check_eval_topk(trainer, name):
+    """K5 at the validation eval's shape (all users x the padded catalog, at
+    the width of ``name``'s representations), on the trained representations
+    and the val exclusion words: the ids of the eval's own ``recommend``
+    against the plain version, in user chunks, and NDCG@K of both id sets."""
     import torch
 
     from igcn_cf_tpu_torch.evaluation.evaluate import recommend, retrieval_inputs
@@ -623,23 +703,29 @@ def check_eval_topk(trainer):
     # a user's NDCG lies in [0, 1]: the means differ by at most the share of
     # users whose lists differ
     if not abs(ndcg_k - ndcg_p) <= (n - same) / n:
-        raise AssertionError(f"eval NDCG@{K} {ndcg_k} through K5 vs {ndcg_p} "
-                             f"plain, with {n - same} of {n} lists differing")
-    log(f"# K5 at the eval's shape: {n} users x {it.shape[1]} padded items, "
-        f"trained reps, val exclusion: {same}/{n} rows identical, max score gap "
+        raise AssertionError(f"{name} eval NDCG@{K} {ndcg_k} through K5 vs "
+                             f"{ndcg_p} plain, with {n - same} of {n} lists "
+                             "differing")
+    log(f"# {name} K5 at the eval's shape: {n} users x {it.shape[1]} padded "
+        f"items, d={ur.shape[1]}, trained reps, val exclusion: {same}/{n} rows "
+        f"identical, max score gap "
         f"{gap:.3g}; NDCG@{K} {ndcg_k:.6f} vs plain {ndcg_p:.6f}; eval "
         f"retrieval (reps + K5) {ms:.4f} ms")
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the training path's kernel wrappers to their plain versions."""
+    """Route the training paths' kernel wrappers to their plain versions."""
     from igcn_cf_tpu_torch.kernels import bitpack, dense_graph, pcache
 
     with contextlib.ExitStack() as stack:
         for mod, name, plain in (
                 (bitpack, "t1", bitpack.t1_plain),
                 (bitpack, "t2", bitpack.t2_plain),
+                (bitpack, "mm_fwd", bitpack.mm_fwd_plain),
+                (bitpack, "mm_bwd", bitpack.mm_bwd_plain),
+                (bitpack, "mm_fwd_masked", bitpack.mm_fwd_masked_plain),
+                (bitpack, "mm_bwd_masked", bitpack.mm_bwd_masked_plain),
                 (dense_graph, "mask_words", bitpack.mask_words_plain),
                 (pcache, "gather_fwd", pcache.gather_fwd_plain),
                 (pcache, "gather_bwd", pcache.gather_bwd_plain)):
@@ -655,7 +741,7 @@ def check_step(trainer, engine):
     from igcn_cf_tpu_torch.kernels import _build
 
     inputs = trainer.sample_step()
-    params = list(trainer.params.values())
+    params = list(trainer.flat_params.values())
 
     def loss_and_grads():
         loss = trainer.loss(trainer.params, *inputs)
@@ -673,7 +759,7 @@ def check_step(trainer, engine):
         raise AssertionError(f"{engine} step loss {float(loss_k)} vs plain "
                              f"{float(loss_p)}")
     worst = 0.0
-    for name, gk, gp in zip(trainer.params, grads_k, grads_p):
+    for name, gk, gp in zip(trainer.flat_params, grads_k, grads_p):
         err = float((gk - gp).abs().max()) / float(gp.abs().max())
         worst = max(worst, err)
         if not err <= STEP_GRAD_REL:
@@ -682,6 +768,54 @@ def check_step(trainer, engine):
     log(f"# {engine} step, kernels vs plain versions: loss {float(loss_k):.8f} "
         f"vs {float(loss_p):.8f} (rel {rel:.3g}); gradients max error "
         f"{worst:.3g} of their largest magnitude")
+
+
+# -- phase 7: LightGCN and NGCF training ------------------------------------------
+
+
+def phase_gcn(full):
+    """LightGCN, then NGCF, one epoch each at the Gowalla presets, each
+    driven with the counts set to 0 just before and read just after. After
+    each epoch, K5 at that model's eval shape against its plain version;
+    after NGCF's, one step through the kernels against the plain versions.
+    Returns the launch counts of the two training runs."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    trainer, epoch = train_one_epoch("LightGCN", *gowalla_preset("LightGCN"),
+                                     full, cache_engine=True)
+    launches = dict(_build.LAUNCHES)
+    steps = trainer.steps_per_epoch()
+    if not epoch["K3"] == epoch["K4"] == steps:
+        raise AssertionError(f"LightGCN launched K3/K4 {epoch['K3']}/"
+                             f"{epoch['K4']} times in {steps} steps")
+    check_eval_topk(trainer, "LightGCN")
+    del trainer  # and its 10 GB P
+    torch.cuda.empty_cache()
+
+    model_cfg, trainer_cfg = gowalla_preset("NGCF")
+    _build.reset_launches()
+    trainer, epoch = train_one_epoch("NGCF", model_cfg, trainer_cfg, full)
+    launches = {k: v + _build.LAUNCHES[k] for k, v in launches.items()}
+    steps = trainer.steps_per_epoch()
+    per_step = 2 * len(model_cfg["layer_sizes"])
+    if not epoch["K6m"] == epoch["K7m"] == per_step * steps:
+        raise AssertionError(f"NGCF launched K6m/K7m {epoch['K6m']}/"
+                             f"{epoch['K7m']} times in {steps} steps, expected "
+                             f"{per_step} each per step")
+    log(f"# launches during the LightGCN and NGCF runs: {launches}")
+    check_launches(launches, GCN_KERNELS, "LightGCN/NGCF")
+    rep = trainer.model.rep(trainer.params, trainer.buffers)
+    width = model_cfg["embedding_size"] + sum(model_cfg["layer_sizes"])
+    if rep.shape != (full.n_users + full.n_items, width) or not bool(
+            torch.isfinite(rep).all()):
+        raise AssertionError(f"NGCF eval reps {tuple(rep.shape)} not finite "
+                             f"or not {width} wide")
+    check_eval_topk(trainer, "NGCF")
+    check_step(trainer, "NGCF")
+    return launches
 
 
 def main() -> int:
@@ -697,14 +831,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer, trainer_rc, train_launches = phase_train(full)
     kern.update(check_gather(trainer))
-    check_eval_topk(trainer)
+    check_eval_topk(trainer, "IGCN")
     check_step(trainer, "cache engine")
     check_step(trainer_rc, "recompute engine")
+    del trainer, trainer_rc  # and their 10 GB P
+    torch.cuda.empty_cache()
+    gcn_launches = phase_gcn(full)
     rows = []
     for name, (what, source, replaces) in KERNELS.items():
         rows.append({"name": f"{name} {what}", "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": serve_launches[name] + train_launches[name],
+                     "launches": (serve_launches[name] + train_launches[name]
+                                  + gcn_launches[name]),
                      "max_abs_err": kern[name]["max_abs_err"],
                      "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]})
     print(json.dumps({"kernels": rows}))

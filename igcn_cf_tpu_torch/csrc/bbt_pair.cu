@@ -34,10 +34,21 @@
 // element has exactly one writer and one summation order (rows ascending):
 // deterministic, no atomics. The 4 warps of a block own adjacent words, so
 // their strided word loads share 32-byte sectors.
+//
+// Both bodies also serve K6/K7, the bb_matmul pair (entries at the end), and
+// take a compile-time MASKED flag for its edge-dropout variant: each word a
+// lane loads is ANDed with the keep word of its (row, word) coordinate
+// (keepword.cuh) before the ballot. The keep decision is a function of
+// (seed, row, word) only, so K6m and K7m drop the same edges, and equal the
+// unmasked kernels run over mask_words' masked copy of B. Zero words stay
+// zero and skip the hash: it runs on the ~2% of words that hold an edge.
+// With MASKED false the bodies are the code they were before the flag.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "keepword.cuh"
 
 namespace {
 
@@ -52,11 +63,13 @@ __device__ __forceinline__ int column_of(int word, int bit) {
   return (word / kTKP) * kTK + bit * kTKP + (word % kTKP);
 }
 
-// DPL: features per lane, d <= 32 * DPL.
-template <int DPL>
+// DPL: features per lane, d <= 32 * DPL. MASKED: drop edges by the keep
+// word of (seed, row, word) with threshold thr (unused when false).
+template <int DPL, bool MASKED>
 __global__ void __launch_bounds__(kT1Threads)
 t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
-          float* __restrict__ y1, int m, int kw, int d) {
+          float* __restrict__ y1, int m, int kw, int d, uint32_t seed,
+          int thr) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= m) return;  // uniform per warp
@@ -67,7 +80,10 @@ t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
 
   for (int base = 0; base < kw; base += 32) {
     const int w = base + lane;
-    const uint32_t word = w < kw ? __ldg(words + w) : 0u;
+    uint32_t word = w < kw ? __ldg(words + w) : 0u;
+    if constexpr (MASKED) {
+      if (word) word &= igcn::keepword(seed, (uint32_t)row, (uint32_t)w, thr);
+    }
     unsigned live = __ballot_sync(kFull, word != 0u);
     while (live) {
       const int src = __ffs(live) - 1;
@@ -92,10 +108,11 @@ t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
   }
 }
 
-template <int DPL>
+template <int DPL, bool MASKED>
 __global__ void __launch_bounds__(kT2Warps * 32)
 t2_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x2,
-          float* __restrict__ y2, int m, int kw, int d) {
+          float* __restrict__ y2, int m, int kw, int d, uint32_t seed,
+          int thr) {
   extern __shared__ float sacc[];  // [kT2Warps][32 planes][d]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -111,6 +128,10 @@ t2_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x2,
     for (int u = 0; u < kT2Unroll; ++u) {
       const int r = r0 + 32 * u + lane;
       word[u] = r < m ? __ldg(wp + (size_t)r * kw + w) : 0u;
+      if constexpr (MASKED) {
+        if (word[u])
+          word[u] &= igcn::keepword(seed, (uint32_t)r, (uint32_t)w, thr);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kT2Unroll; ++u) {
@@ -146,77 +167,111 @@ t2_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x2,
   }
 }
 
-template <int DPL>
+template <int DPL, bool MASKED>
 cudaError_t launch_t1(const uint32_t* wp, const __nv_bfloat16* x1, float* y1,
-                      int m, int kw, int d, cudaStream_t stream) {
+                      int m, int kw, int d, uint32_t seed, int thr,
+                      cudaStream_t stream) {
   const int rows_per_block = kT1Threads / 32;
   const int blocks = (m + rows_per_block - 1) / rows_per_block;
-  t1_kernel<DPL><<<blocks, kT1Threads, 0, stream>>>(wp, x1, y1, m, kw, d);
+  t1_kernel<DPL, MASKED><<<blocks, kT1Threads, 0, stream>>>(wp, x1, y1, m, kw,
+                                                            d, seed, thr);
   return cudaGetLastError();
 }
 
-template <int DPL>
+template <int DPL, bool MASKED>
 cudaError_t launch_t2(const uint32_t* wp, const __nv_bfloat16* x2, float* y2,
-                      int m, int kw, int d, cudaStream_t stream) {
+                      int m, int kw, int d, uint32_t seed, int thr,
+                      cudaStream_t stream) {
   const size_t smem = (size_t)kT2Warps * 32 * d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      t2_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      t2_kernel<DPL, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (kw + kT2Warps - 1) / kT2Warps;
-  t2_kernel<DPL><<<blocks, kT2Warps * 32, smem, stream>>>(wp, x2, y2, m, kw, d);
+  t2_kernel<DPL, MASKED><<<blocks, kT2Warps * 32, smem, stream>>>(
+      wp, x2, y2, m, kw, d, seed, thr);
   return cudaGetLastError();
+}
+
+// d must be in [1, 256]: the shared partial sums of K2 take 512*d bytes.
+bool bad_args(int m, int kw, int d, int thr) {
+  return d < 1 || d > 256 || m < 0 || kw < 0 || thr < 0 || thr > 255;
+}
+
+template <bool MASKED>
+int run_t1(const void* wp, const void* x1, void* y1, int m, int kw, int d,
+           uint32_t seed, int thr, void* stream) {
+  auto w = static_cast<const uint32_t*>(wp);
+  auto x = static_cast<const __nv_bfloat16*>(x1);
+  auto y = static_cast<float*>(y1);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bad_args(m, kw, d, thr)) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaGetLastError();
+  if (d <= 32) return (int)launch_t1<1, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  if (d <= 64) return (int)launch_t1<2, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  if (d <= 128) return (int)launch_t1<4, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  return (int)launch_t1<8, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+}
+
+template <bool MASKED>
+int run_t2(const void* wp, const void* x2, void* y2, int m, int kw, int d,
+           uint32_t seed, int thr, void* stream) {
+  auto w = static_cast<const uint32_t*>(wp);
+  auto x = static_cast<const __nv_bfloat16*>(x2);
+  auto y = static_cast<float*>(y2);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bad_args(m, kw, d, thr)) return (int)cudaErrorInvalidValue;
+  if (kw == 0) return (int)cudaGetLastError();
+  if (d <= 32) return (int)launch_t2<1, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  if (d <= 64) return (int)launch_t2<2, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  if (d <= 128) return (int)launch_t2<4, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  return (int)launch_t2<8, MASKED>(w, x, y, m, kw, d, seed, thr, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// d must be in [1, 256]: the shared partial sums of K2 take 512*d bytes.
 int igcn_t1(const void* wp, const void* x1, void* y1, int m, int kw, int d,
             void* stream) {
-  auto w = static_cast<const uint32_t*>(wp);
-  auto x = static_cast<const __nv_bfloat16*>(x1);
-  auto y = static_cast<float*>(y1);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > 256 || m < 0 || kw < 0) return (int)cudaErrorInvalidValue;
-  if (m == 0) return (int)cudaGetLastError();
-  if (d <= 32) return (int)launch_t1<1>(w, x, y, m, kw, d, s);
-  if (d <= 64) return (int)launch_t1<2>(w, x, y, m, kw, d, s);
-  if (d <= 128) return (int)launch_t1<4>(w, x, y, m, kw, d, s);
-  return (int)launch_t1<8>(w, x, y, m, kw, d, s);
+  return run_t1<false>(wp, x1, y1, m, kw, d, 0u, 0, stream);
 }
 
 int igcn_t2(const void* wp, const void* x2, void* y2, int m, int kw, int d,
             void* stream) {
-  auto w = static_cast<const uint32_t*>(wp);
-  auto x = static_cast<const __nv_bfloat16*>(x2);
-  auto y = static_cast<float*>(y2);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > 256 || m < 0 || kw < 0) return (int)cudaErrorInvalidValue;
-  if (kw == 0) return (int)cudaGetLastError();
-  if (d <= 32) return (int)launch_t2<1>(w, x, y, m, kw, d, s);
-  if (d <= 64) return (int)launch_t2<2>(w, x, y, m, kw, d, s);
-  if (d <= 128) return (int)launch_t2<4>(w, x, y, m, kw, d, s);
-  return (int)launch_t2<8>(w, x, y, m, kw, d, s);
+  return run_t2<false>(wp, x2, y2, m, kw, d, 0u, 0, stream);
 }
 
-// K6 and K7: the unmasked bb_matmul pair of the JAX package,
+// K6 and K7: the bb_matmul pair of the JAX package,
 // igcn_cf_tpu/kernels/bitpack.py::_fwd_pallas (K6, Y = B @ X) and
-// ::_bwd_pallas (K7, Y = B^T @ X), with masked=False. They compute the
-// products of K1 and K2 on X in its original row-major (n, d) layout, which
-// is what the kernel bodies above read, so the Python wrappers pass X with
-// no transposed copy. The propagation-cache build runs them at d = 128
-// (DPL = 4; 64 KB of K7 shared memory). The in-kernel keep mask of the
-// masked variants (bb_matmul_dropped) is not ported: no ported model uses
-// it yet.
+// ::_bwd_pallas (K7, Y = B^T @ X). They compute the products of K1 and K2
+// on X in its original row-major (n, d) layout, which is what the kernel
+// bodies above read, so the Python wrappers pass X with no transposed copy.
+// The propagation-cache build runs the unmasked pair at d = 128 (DPL = 4;
+// 64 KB of K7 shared memory).
 int igcn_bb_fwd(const void* wp, const void* x, void* y, int m, int kw, int d,
                 void* stream) {
-  return igcn_t1(wp, x, y, m, kw, d, stream);
+  return run_t1<false>(wp, x, y, m, kw, d, 0u, 0, stream);
 }
 
 int igcn_bb_bwd(const void* wp, const void* x, void* y, int m, int kw, int d,
                 void* stream) {
-  return igcn_t2(wp, x, y, m, kw, d, stream);
+  return run_t2<false>(wp, x, y, m, kw, d, 0u, 0, stream);
+}
+
+// K6m and K7m: the same pair with the in-kernel edge-dropout mask,
+// _fwd_pallas/_bwd_pallas with masked=True (bb_matmul_dropped), which NGCF
+// runs in every layer of a training step at d = 64. seed is the u32 mask
+// seed, thr = round(p * 256) in [0, 255]; no 1/(1-p) rescale. K7m keeps
+// K7's one writer per output and ascending row order: deterministic.
+int igcn_bb_fwd_masked(const void* wp, const void* x, void* y, int m, int kw,
+                       int d, unsigned int seed, int thr, void* stream) {
+  return run_t1<true>(wp, x, y, m, kw, d, (uint32_t)seed, thr, stream);
+}
+
+int igcn_bb_bwd_masked(const void* wp, const void* x, void* y, int m, int kw,
+                       int d, unsigned int seed, int thr, void* stream) {
+  return run_t2<true>(wp, x, y, m, kw, d, (uint32_t)seed, thr, stream);
 }
 
 }  // extern "C"

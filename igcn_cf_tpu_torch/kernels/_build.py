@@ -33,8 +33,9 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # Launches of each kernel, counted by its wrapper right after a launch that
 # returned no error. A run resets them to show which kernels it went through.
+# K6m/K7m are the masked variants of K6/K7 (edge dropout inside the kernel).
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K8": 0}
+            "K6m": 0, "K7m": 0, "K8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +52,10 @@ _SIGNATURES = {
     "igcn_bb_fwd": (_P, _P, _P, _I, _I, _I, _P),
     # (wp, x (m, d) bf16, y (K, d) f32, m, kw, d, stream)
     "igcn_bb_bwd": (_P, _P, _P, _I, _I, _I, _P),
+    # (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, seed, thr, stream)
+    "igcn_bb_fwd_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
+    # (wp, x (m, d) bf16, y (K, d) f32, m, kw, d, seed, thr, stream)
+    "igcn_bb_bwd_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
     # (wp, out, m, kw, seed, thr, stream)
     "igcn_mask_words": (_P, _P, _I, _I, _U, _I, _P),
     # (p, rows, x0, part, out, n, npad, r, dpad, splits, stream)

@@ -24,7 +24,9 @@ bit position of an int32. CUDA reads the same words as ``uint32_t``.
 (dropout-masked) operands; both are autograd functions whose backward is
 the pair with directions swapped. ``bb_matmul(wp, x, transpose)`` is
 B @ X or B^T @ X on row-major (n, d) X -- kernels K6/K7, which the
-propagation-cache build runs. ``mask_words(wp, seed, p)`` applies the
+propagation-cache build runs. ``bb_matmul_dropped(wp, x, seed, p,
+transpose)`` is the same product with edge dropout applied inside the
+kernels (K6m/K7m), as NGCF trains. ``mask_words(wp, seed, p)`` applies the
 coordinate-hashed keep mask, bit-identical to the JAX package.
 
 X operands are rounded to bf16 and summed in f32, as the JAX kernels do.
@@ -246,7 +248,9 @@ def mm_bwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mm_cuda(entry: str, kid: str, wp: torch.Tensor, x: torch.Tensor,
-             n_in: int, n_out: int) -> torch.Tensor:
+             n_in: int, n_out: int, *mask) -> torch.Tensor:
+    """Launch a bb_matmul entry; ``mask`` is (seed, thr) for the masked
+    entries."""
     if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
         raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
     if x.device != wp.device:
@@ -257,7 +261,7 @@ def _mm_cuda(entry: str, kid: str, wp: torch.Tensor, x: torch.Tensor,
     m, kw = wp.shape
     xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((n_out, x.shape[1]), dtype=torch.float32, device=wp.device)
-    _build.launch(entry, wp, xb, y, m, kw, x.shape[1])
+    _build.launch(entry, wp, xb, y, m, kw, x.shape[1], *mask)
     _build.LAUNCHES[kid] += 1
     return y
 
@@ -278,25 +282,36 @@ def mm_bwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mm_bwd_plain(wp, x)
 
 
-class _MatmulFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, wp, x, transpose: bool):
-        ctx.save_for_backward(wp)
-        ctx.transpose = transpose
+def _mm(wp, x, transpose: bool, mask):
+    """B @ X (K6), B^T @ X (K7), or their masked variants (K6m/K7m) when
+    ``mask`` is (seed, p)."""
+    if mask is None:
         return mm_bwd(wp, x) if transpose else mm_fwd(wp, x)
+    return mm_bwd_masked(wp, x, *mask) if transpose else mm_fwd_masked(wp, x, *mask)
+
+
+class _MatmulFn(torch.autograd.Function):
+    """The product in one orientation; its gradient in x is the other
+    orientation over the same words and, when masked, the same seed, so the
+    backward sees the forward's drops exactly."""
+
+    @staticmethod
+    def forward(ctx, wp, x, transpose: bool, mask):
+        ctx.save_for_backward(wp)
+        ctx.transpose, ctx.mask = transpose, mask
+        return _mm(wp, x, transpose, mask)
 
     @staticmethod
     def backward(ctx, ct):
         (wp,) = ctx.saved_tensors
-        dx = mm_fwd(wp, ct) if ctx.transpose else mm_bwd(wp, ct)
-        return None, dx, None
+        return None, _mm(wp, ct, not ctx.transpose, ctx.mask), None, None
 
 
 def bb_matmul(wp: torch.Tensor, x: torch.Tensor,
               transpose: bool = False) -> torch.Tensor:
     """B @ x, or B^T @ x with ``transpose``, for the 1-bit-packed B; the
     gradient in x runs through the other orientation over the same words."""
-    return _MatmulFn.apply(wp, x, transpose)
+    return _MatmulFn.apply(wp, x, transpose, None)
 
 
 # -- edge-dropout keep mask (bit-identical to the JAX package) ----------------
@@ -345,13 +360,14 @@ def _keepword(seed, rows: torch.Tensor, words: torch.Tensor,
 
 
 def keep_mask_dense(seed: int, n_rows: int, n_cols: int, p: float,
-                    device="cpu") -> torch.Tensor:
-    """Unpacked (n_rows, n_cols) bool keep mask: the same decision the
-    masked words carry, for tests and oracles."""
+                    device="cpu", row0: int = 0) -> torch.Tensor:
+    """Unpacked (n_rows, n_cols) bool keep mask of rows [row0, row0 +
+    n_rows): the same decision the masked words carry, for tests, oracles
+    and the masked products' plain versions."""
     cols = torch.arange(n_cols, dtype=torch.int64, device=device)
     words = (cols // TK) * TKP + cols % TKP
     bit = (cols % TK) // TKP
-    rows = torch.arange(n_rows, dtype=torch.int64, device=device)
+    rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64, device=device)
     kw = _keepword(seed, rows[:, None], words[None, :], _threshold_u8(p))
     return ((kw >> bit[None, :]) & 1).bool()
 
@@ -387,6 +403,79 @@ def mask_words(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
                   _threshold_u8(p))
     _build.LAUNCHES["K8"] += 1
     return out
+
+
+# -- bb_matmul_dropped: the original-layout pair with in-kernel dropout -------
+
+# Rows of B per step of the masked plain versions: the unpacked keep mask of
+# 1,024 rows of the Gowalla-scale B is 46M entries, a few GB of int64 hash
+# temporaries, where the whole B would take tens of GB.
+_PLAIN_ROWS = 1024
+
+
+def _masked_rows(wp: torch.Tensor, seed: int, p: float, r0: int,
+                 r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of B with the keep mask applied, unpacked to f32."""
+    keep = keep_mask_dense(seed, r1 - r0, wp.shape[1] * 32, p, wp.device,
+                           row0=r0)
+    return unpack_bits(wp[r0:r1]) * keep
+
+
+def mm_fwd_masked_plain(wp: torch.Tensor, x: torch.Tensor, seed: int,
+                        p: float) -> torch.Tensor:
+    """Y (m, d) = (B * M) @ X with M = ``keep_mask_dense(seed, ...)`` and X
+    (K, d) rounded to bf16, f32 sums; no 1/(1-p) rescale."""
+    xb = _bf16_round(x)
+    m = wp.shape[0]
+    y = xb.new_zeros((m, x.shape[1]))
+    for r0 in range(0, m, _PLAIN_ROWS):
+        r1 = min(r0 + _PLAIN_ROWS, m)
+        y[r0:r1] = _masked_rows(wp, seed, p, r0, r1) @ xb
+    return y
+
+
+def mm_bwd_masked_plain(wp: torch.Tensor, x: torch.Tensor, seed: int,
+                        p: float) -> torch.Tensor:
+    """Y (K, d) = (B * M)^T @ X with X (m, d) rounded to bf16, f32 sums."""
+    xb = _bf16_round(x)
+    y = xb.new_zeros((wp.shape[1] * 32, x.shape[1]))
+    for r0 in range(0, wp.shape[0], _PLAIN_ROWS):
+        r1 = min(r0 + _PLAIN_ROWS, wp.shape[0])
+        y += _masked_rows(wp, seed, p, r0, r1).T @ xb[r0:r1]
+    return y
+
+
+def mm_fwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
+                  p: float) -> torch.Tensor:
+    """K6m: Y (m, d) = (B * M) @ X, the keep mask M of ``seed`` and ``p``
+    applied to each word inside the kernel. Equal, bit for bit, to K6 over
+    ``mask_words(wp, seed, p)``."""
+    seed = _check_seed(seed)
+    if _build.on_cuda(wp):
+        return _mm_cuda("igcn_bb_fwd_masked", "K6m", wp, x, wp.shape[1] * 32,
+                        wp.shape[0], seed, _threshold_u8(p))
+    return mm_fwd_masked_plain(wp, x, seed, p)
+
+
+def mm_bwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
+                  p: float) -> torch.Tensor:
+    """K7m: Y (K, d) = (B * M)^T @ X over the same keep decisions as K6m."""
+    seed = _check_seed(seed)
+    if _build.on_cuda(wp):
+        return _mm_cuda("igcn_bb_bwd_masked", "K7m", wp, x, wp.shape[0],
+                        wp.shape[1] * 32, seed, _threshold_u8(p))
+    return mm_bwd_masked_plain(wp, x, seed, p)
+
+
+def bb_matmul_dropped(wp: torch.Tensor, x: torch.Tensor, seed: int, p: float,
+                      transpose: bool = False) -> torch.Tensor:
+    """(B * M) @ x, or (B * M)^T @ x with ``transpose``, for the keep mask M
+    of the u32 ``seed`` and dropout ``p`` (quantized to 1/256), without the
+    1/(1-p) rescale (callers fold it). The mask is a function of (seed, row,
+    word), so the backward, the other orientation under the same seed, sees
+    the forward's drops exactly (the JAX package's ``bb_matmul_dropped``
+    given the seed its key yields)."""
+    return _MatmulFn.apply(wp, x, transpose, (int(seed), float(p)))
 
 
 def packed_lookup(packed: torch.Tensor, rows: torch.Tensor,

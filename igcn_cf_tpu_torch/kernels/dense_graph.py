@@ -1,21 +1,24 @@
 """Dense-bipartite graph engine (port of
 ``igcn_cf_tpu/kernels/dense_graph.py``).
 
-Every graph matrix of IGCN is the binary user x item pattern B with row-wise
-scaling, so one bit-packed B serves both the INMO feature aggregation and
-the symmetric-normalized propagation:
+Every graph matrix of IGCN, LightGCN and NGCF is the binary user x item
+pattern B with row-wise scaling, so one bit-packed B serves the INMO feature
+aggregation, the symmetric-normalized propagation and NGCF's row-normalized
+A + I:
 
     A @ X = [ du * (B @ (di * X_i)) ; di * (B^T @ (du * X_u)) ],
-    du, di = max(degree, 1)^-1/2.
+    du, di = max(degree, 1)^-1/2;
+    (A + I) @ X / (deg + 1) = [ (B @ X_i + X_u) / (deg_u + 1) ; ... ].
 
-Both directions of one step run as one ``bbt_pair`` call (kernels K1/K2) in
-the transposed (d, n) layout of the JAX package; ``sym_norm_propagate``
-runs the same step in the original (n, d) layout through ``bb_matmul``
-(K6/K7), as the propagation-cache build does. Every operator here is
-differentiable. Training's edge dropout masks B once per direction
-(``mask_words``); its seeds and token keeps are explicit arguments
-(``FeatDrop``), drawn by the model. The NGCF propagation and the sparse COO
-backend (``kernels/sparse.py``) are not ported.
+Both directions of one sym-norm step run as one ``bbt_pair`` call (kernels
+K1/K2) in the transposed (d, n) layout of the JAX package;
+``sym_norm_propagate`` and ``ngcf_propagate`` run in the original (n, d)
+layout through ``bb_matmul`` (K6/K7), as the propagation-cache build does.
+Every operator here is differentiable. Edge dropout draws are explicit
+arguments (``FeatDrop``), drawn by the model: the INMO feature aggregation
+masks B once per direction (``mask_words``), NGCF masks inside K6m/K7m
+(``bb_matmul_dropped``). The sparse COO backend (``kernels/sparse.py``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from igcn_cf_tpu_torch.kernels.bitpack import (
     TKP,
     TM,
     bb_matmul,
+    bb_matmul_dropped,
     bbt_pair,
     bbt_pair_premasked,
     mask_words,
@@ -133,6 +137,18 @@ class BipartiteDense:
         return bb_matmul(self.B, _pad_rows(xu, self.rows_padded),
                          True)[: self.n_items]
 
+    def mm_ui_dropped(self, xi: torch.Tensor, seed: int,
+                      p: float) -> torch.Tensor:
+        """(B * M) @ xi -> (n_users, d), M the keep mask of ``seed`` (K6m)."""
+        return bb_matmul_dropped(self.B, _pad_rows(xi, self.cols_padded), seed,
+                                 p)[: self.n_users]
+
+    def mm_iu_dropped(self, xu: torch.Tensor, seed: int,
+                      p: float) -> torch.Tensor:
+        """(B * M)^T @ xu -> (n_items, d) (K7m)."""
+        return bb_matmul_dropped(self.B, _pad_rows(xu, self.rows_padded), seed,
+                                 p, True)[: self.n_items]
+
 
 def sym_norm_propagate(g: BipartiteDense, x: torch.Tensor) -> torch.Tensor:
     """One D^-1/2 A D^-1/2 @ X step in the original (n, d) layout."""
@@ -171,11 +187,12 @@ def sym_norm_propagate_mean(
 
 
 class FeatDrop(NamedTuple):
-    """One draw of the feature aggregation's edge dropout: the u32 mask
-    seeds of the user-side block (``seed_b``, B's train edges as seen from
-    users) and the item-side block (``seed_bt``), and the keeps of the two
-    token edges, (n_users,) and (n_items,) bool. The JAX package derives
-    them from one key as split(key, 4) -> (k_b, k_bt, k_tu, k_ti)."""
+    """One draw of edge dropout over B and one extra edge per row: the u32
+    mask seeds of the user-side block (``seed_b``, B's train edges as seen
+    from users) and the item-side block (``seed_bt``), and the keeps of the
+    extra edges, (n_users,) and (n_items,) bool -- the token edges of the
+    INMO feature aggregation, the self-loops of NGCF. The JAX package
+    derives them from one key as split(key, 4) -> (k_b, k_bt, k_tu, k_ti)."""
 
     seed_b: int
     seed_bt: int
@@ -225,6 +242,31 @@ def feat_aggregate(
         xi_t = y2t[:, : g.n_items] + tok_i[:, None]
     x0t = torch.cat([w_u[None, :] * xu_t, w_i[None, :] * xi_t], dim=1)
     return x0t.T
+
+
+def ngcf_propagate(g: BipartiteDense, x: torch.Tensor, *,
+                   dropout: float = 0.0,
+                   drop: Optional[FeatDrop] = None) -> torch.Tensor:
+    """One L1-row-normalized (A + I) @ X step, NGCF's message aggregation:
+    a user's row is (B @ X_i + X_u) / (deg_u + 1), an item's symmetrically.
+
+    With ``dropout`` > 0 and a ``drop`` draw, both blocks of B drop edges
+    inside the kernels under their own seeds (K6m/K7m), the self-loops by
+    ``drop.keep_u``/``keep_i``, and the sum is rescaled by 1/(1-p) with the
+    unquantized p before the degree division, as in the JAX package."""
+    xu, xi = x[: g.n_users], x[g.n_users :]
+    if dropout > 0.0 and drop is not None:
+        scale = 1.0 / (1.0 - dropout)
+        yu = (g.mm_ui_dropped(xi, drop.seed_b, dropout)
+              + torch.where(drop.keep_u[:, None], xu, 0.0)) * scale
+        yi = (g.mm_iu_dropped(xu, drop.seed_bt, dropout)
+              + torch.where(drop.keep_i[:, None], xi, 0.0)) * scale
+    else:
+        yu = g.mm_ui(xi) + xu
+        yi = g.mm_iu(xu) + xi
+    yu = yu / (g.deg_u + 1.0)[:, None]
+    yi = yi / (g.deg_i + 1.0)[:, None]
+    return torch.cat([yu, yi])
 
 
 # The plain versions on the CPU unpack B to f32, 32x its packed size: a

@@ -4,8 +4,10 @@ A ``Model`` is an ``nn.Module`` that holds static config and host-side
 graph structures. Device state is two explicit dictionaries, as in the JAX
 package, so a checkpoint, a refresh or a test can swap either one:
 
-  * ``params``  — trainable tensors, from ``init_params(generator)`` or
-    ``load(path)``;
+  * ``params``  — the tree of trainable tensors, from
+    ``init_params(generator)`` or ``load(path)``: a flat ``{name: tensor}``
+    for most models, nested dicts and lists where the JAX package nests
+    them (NGCF's layer lists);
   * ``buffers`` — non-trainable device tensors derived from the dataset,
     from ``init_buffers()``.
 
@@ -16,7 +18,7 @@ which returns (user_rep, pos_rep, neg_rep, l2 per triple) with autograd;
 ``drop`` is the step's dropout draw, from ``draw_drop``. Params are leaf
 tensors with ``requires_grad``; ``torch.optim`` updates them in place.
 
-Checkpoints are the JAX package's pickle, ``{"params": {name: np.ndarray},
+Checkpoints are the JAX package's pickle, ``{"params": tree of np.ndarray,
 "extra": {...}}``, so each package loads the other's.
 """
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 import pickle
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -41,6 +44,29 @@ def normal_init(generator: Optional[torch.Generator], shape, std=0.1,
     device."""
     x = torch.randn(shape, generator=generator, dtype=dtype)
     return (std * x).to(device)
+
+
+def kaiming_uniform(generator: Optional[torch.Generator], shape,
+                    device="cpu") -> torch.Tensor:
+    """torch.nn.init.kaiming_uniform_'s default (a=0, fan_in, gain
+    sqrt(2)): uniform in [-b, b) with b = sqrt(6 / fan_in), fan_in =
+    shape[-1] of an (out, in) weight. Drawn on the CPU from ``generator``."""
+    bound = float(np.sqrt(6.0 / shape[-1]))
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return ((2.0 * u - 1.0) * bound).to(device)
+
+
+def linear_init(generator: Optional[torch.Generator], in_features: int,
+                out_features: int, device="cpu") -> Params:
+    """A linear layer as the JAX package holds it: kaiming-uniform weight
+    stored (in, out), so it applies as x @ w + b, and a zero bias."""
+    w = kaiming_uniform(generator, (out_features, in_features)).T.contiguous()
+    return {"w": w.to(device),
+            "b": torch.zeros(out_features, dtype=torch.float32, device=device)}
+
+
+def linear_apply(layer: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ layer["w"] + layer["b"]
 
 
 def l2sq(x: torch.Tensor, dim=None) -> torch.Tensor:
@@ -86,6 +112,26 @@ class Model(nn.Module):
     def draw_drop(self, keys, generator: torch.Generator):
         """One train step's dropout draw (None: the model drops nothing)."""
         return None
+
+    def attach_pcache(self, bip, buffers: Buffers) -> None:
+        """Build the propagation cache P of ``bip`` into
+        ``buffers["pcache"]`` for a model whose static gate passed (IGCN,
+        LightGCN: ``n_layers``, ``embedding_size``, ``pcache``). For 'auto'
+        on CUDA the engines are A/B-measured at the trainer's batch size
+        (set on the model before ``init_buffers``) unless the config names
+        one; a rejection turns the cache engine off."""
+        from igcn_cf_tpu_torch.kernels.pcache import maybe_build_pcache
+
+        p, self.engine_ab = maybe_build_pcache(
+            bip, self.n_layers, self.embedding_size,
+            self.config.get("prop_cache", "auto"),
+            int(self.config.get("prop_cache_ab_batch",
+                                getattr(self, "ab_batch", 2048))),
+        )
+        if p is None:
+            self.pcache = False
+        else:
+            buffers["pcache"] = p
 
     # -- epoch hook (INMO anneal); default no-op ----------------------------
 

@@ -37,11 +37,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import (
     feat_aggregate,
     sym_norm_propagate_mean,
 )
-from igcn_cf_tpu_torch.kernels.pcache import (
-    cached_prop,
-    maybe_build_pcache,
-    use_pcache,
-)
+from igcn_cf_tpu_torch.kernels.pcache import cached_prop, use_pcache
 from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 
@@ -134,18 +130,7 @@ class IGCN(Model):
             "alpha": torch.tensor(self.alpha, dtype=torch.float32, device=dev),
         }
         if self.pcache and build_pcache:
-            # the A/B measures at the trainer's batch size (set on the model
-            # before init_buffers) unless the config names one
-            p, self.engine_ab = maybe_build_pcache(
-                bip, self.n_layers, self.embedding_size,
-                self.config.get("prop_cache", "auto"),
-                int(self.config.get("prop_cache_ab_batch",
-                                    getattr(self, "ab_batch", 2048))),
-            )
-            if p is None:
-                self.pcache = False
-            else:
-                buffers["pcache"] = p
+            self.attach_pcache(bip, buffers)
         return buffers
 
     # -- representation -----------------------------------------------------

@@ -28,7 +28,9 @@ import torch
 from igcn_cf_tpu_torch.convert import (
     adam_state_from_jax,
     adam_state_to_jax,
-    params_from_jax,
+    copy_params_,
+    flatten_tree,
+    map_tree,
     params_to_jax,
 )
 from igcn_cf_tpu_torch.core.prng import KeySeq
@@ -77,12 +79,13 @@ class BasicTrainer:
         self.batch_size = trainer_config.get("batch_size", 2048)
         # the engine A/B measures at the batch size the trainer runs
         model.ab_batch = self.batch_size
+        # the model's parameter tree (nested for NGCF), and the same leaf
+        # tensors by dotted name for torch.optim and per-name checks
         self.params = {}
         if model.trainable:
-            self.params = {
-                k: v.requires_grad_()
-                for k, v in model.init_params(self.keys.generator()).items()
-            }
+            self.params = map_tree(lambda v: v.requires_grad_(),
+                                   model.init_params(self.keys.generator()))
+        self.flat_params = flatten_tree(self.params)
         self.buffers = model.init_buffers()
         self.opt = None
         if model.trainable and "optimizer" in trainer_config:
@@ -101,7 +104,7 @@ class BasicTrainer:
         """Resolve the optimizer by name (reference trainer.py:43-45) over
         the params, with fresh state."""
         self.opt = OPTIMIZERS[self.config["optimizer"]](
-            list(self.params.values()), self.config["lr"])
+            list(self.flat_params.values()), self.config["lr"])
 
     # -- subclass API -------------------------------------------------------
 
@@ -122,9 +125,10 @@ class BasicTrainer:
     # -- full-state checkpoint / resume -------------------------------------
 
     def save_state(self, path: Optional[str] = None) -> str:
-        """The whole training state in the port's own pickle: params and
-        Adam moments as numpy (Adam in optax's (count, mu, nu) terms), the
-        epoch, the best metric and its checkpoint, and the RNG states."""
+        """The whole training state in the port's own pickle: the parameter
+        tree and Adam moments as numpy, in the JAX package's nested shape
+        (Adam in optax's (count, mu, nu) terms), the epoch, the best metric
+        and its checkpoint, and the RNG states."""
         path = path or self.state_path
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         state = {
@@ -152,10 +156,7 @@ class BasicTrainer:
             raise ValueError(f"{path} is not a {STATE_FORMAT} training state")
         self.model.load_extra_state(state["model_extra"])
         self.buffers = self.model.refresh_buffers(self.buffers)
-        with torch.no_grad():
-            for name, value in params_from_jax(state["params"],
-                                               self.device).items():
-                self.params[name].copy_(value)
+        copy_params_(self.params, state["params"])
         adam_state_from_jax(state["opt_state"], self.params, self.opt)
         self.start_epoch = state["epoch"] + 1
         self.best_ndcg = state["best_ndcg"]
@@ -166,9 +167,7 @@ class BasicTrainer:
     # -- main loop (reference trainer.py:57-107) ----------------------------
 
     def _reload(self, path: str) -> None:
-        with torch.no_grad():
-            for name, value in self.model.load(path).items():
-                self.params[name].copy_(value)
+        copy_params_(self.params, self.model.load(path))
         self.buffers = self.model.refresh_buffers(self.buffers)
 
     def train(self, verbose: bool = True) -> float:

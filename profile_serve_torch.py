@@ -93,8 +93,8 @@ def main() -> int:
     reduced = dropui(full, 0.8)
     rng = np.random.default_rng(smoke.SEED)
     ckpt = smoke.write_checkpoint(reduced, rng)
-    rec = Recommender.from_checkpoint(str(ckpt), smoke.MODEL_CFG, reduced,
-                                      device="cuda")
+    rec = Recommender.from_checkpoint(str(ckpt), smoke.gowalla_preset("IGCN")[0],
+                                      reduced, device="cuda")
     rec.refresh(full)
     rec.refresh(full)  # warm: the catalog no longer grows
     model = rec.model

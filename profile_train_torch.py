@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's IGCN train step spends its time, on one CUDA
-card.
+"""Where the PyTorch port's train steps spend their time, on one CUDA card.
 
 Run from the root of a checkout:
 
     python3 profile_train_torch.py [--out .smoke/profile_train.txt]
+                                   [--models IGCN LightGCN NGCF]
 
-It takes ``chip_smoke.py``'s training scenario: the Gowalla-scale synthetic
-catalog (seed 2021), IGCN at the Gowalla preset (d=64, 3 layers, dropout
-0.3), IGCNTrainer at batch 2048. For each engine (the propagation cache,
-then recompute) it warms up with 20 steps and prints:
+It takes ``chip_smoke.py``'s training scenarios on the Gowalla-scale
+synthetic catalog (seed 2021), each model at its Gowalla preset, batch
+2048: IGCN (d=64, 3 layers, dropout 0.3, IGCNTrainer) on each engine, the
+propagation cache then recompute; LightGCN (d=64, 3 layers) on the cache
+engine; NGCF (d=64, layers [64, 64, 64], dropout 0.1). For each it warms up
+with 20 steps and prints:
 
   - the step's wall ms, median of 50 steps, each ended by a synchronize;
   - the medians of its pieces, each timed alone after a synchronize:
@@ -31,6 +33,21 @@ import chip_smoke as smoke
 from profile_serve_torch import device_profile
 
 WARMUP, TIMED, PROFILED = 20, 50, 20
+
+
+def scenarios(models):
+    """(label, model config, trainer config) of each profiled scenario."""
+    for name in models:
+        model_cfg, trainer_cfg = smoke.gowalla_preset(name)
+        if name == "IGCN":
+            for engine, prop_cache in (("cache", True), ("recompute", False)):
+                yield (f"IGCN {engine} engine",
+                       dict(model_cfg, prop_cache=prop_cache), trainer_cfg)
+        elif name == "LightGCN":
+            yield ("LightGCN cache engine", dict(model_cfg, prop_cache=True),
+                   trainer_cfg)
+        else:
+            yield ("NGCF", model_cfg, trainer_cfg)
 
 
 def piece_medians(trainer, reps=TIMED):
@@ -72,6 +89,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=".smoke/profile_train.txt")
+    ap.add_argument("--models", nargs="+", default=["IGCN"],
+                    choices=["IGCN", "LightGCN", "NGCF"])
     args = ap.parse_args()
 
     smi = smoke.phase_device()
@@ -80,24 +99,23 @@ def main() -> int:
     lines = [f"# nvidia-smi: {smi}"]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as out:
-        for engine, prop_cache in (("cache", True), ("recompute", False)):
-            model = get_model(dict(smoke.MODEL_CFG, prop_cache=prop_cache),
-                              full, "cuda")
-            trainer = get_trainer(smoke.TRAINER_CFG, full, model)
+        for label, model_cfg, trainer_cfg in scenarios(args.models):
+            model = get_model(model_cfg, full, "cuda")
+            trainer = get_trainer(trainer_cfg, full, model)
             for _ in range(WARMUP):
                 trainer.train_step(*trainer.sample_step())
             med = piece_medians(trainer)
             batch = trainer.batch_size
             lines.append(
-                f"# {engine} engine: step {med['step']:.4f} ms median of "
+                f"# {label}: step {med['step']:.4f} ms median of "
                 f"{TIMED} ({batch / med['step'] * 1e3:.1f} int/s); pieces "
                 + ", ".join(f"{k} {v:.4f}" for k, v in med.items() if k != "step")
                 + " ms")
             wall, dev, rows = device_profile(
                 lambda: [trainer.train_step(*trainer.sample_step())
                          for _ in range(PROFILED)],
-                f"{engine} engine, {PROFILED} steps", out)
-            lines.append(f"# {engine} engine, {PROFILED} steps under the "
+                f"{label}, {PROFILED} steps", out)
+            lines.append(f"# {label}, {PROFILED} steps under the "
                          f"profiler: wall {wall:.3f} ms, device {dev:.3f} ms, "
                          f"busy share {dev / wall:.4f}")
             for name, calls, ms in rows[:10]:

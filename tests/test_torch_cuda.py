@@ -70,6 +70,7 @@ def test_pair_kernel_is_deterministic(cuda):
     (150, 1000, 1024, 256, 8, 7),
     (33, 5000, 8192, 4096, 64, 128),   # largest k, ragged user count
     (16, 20, 128, 128, 4, 20),         # k = every real item
+    (300, 5000, 8192, 4096, 256, 20),  # NGCF's eval width: 80 KiB of smem
 ])
 @pytest.mark.parametrize("dyadic", [True, False])
 def test_fused_topk_kernel_matches_plain(cuda, n, n_items, nip, li, d, k,
@@ -241,3 +242,104 @@ def test_new_wrappers_refuse_bad_operands(cuda):
         bitpack.mm_fwd(wp, torch.zeros(100, 8, device=cuda))
     with pytest.raises(ValueError):
         bitpack.mm_bwd(wp, torch.zeros(4096, 8, device=cuda))
+
+
+@pytest.mark.parametrize("n_users,n_items,nnz,d,seed,p", [
+    (300, 400, 12000, 64, 7, 0.1),            # NGCF's width and dropout
+    (1100, 9000, 30000, 16, 2**32 - 1, 0.3),  # several tiles, top seed
+    (600, 5000, 20000, 100, 12345, 0.5),      # d not a multiple of 32
+])
+def test_masked_matmul_kernels_match_plain_and_premasked(
+        cuda, n_users, n_items, nnz, d, seed, p):
+    """K6m/K7m against their plain versions, and bit-equal to K6/K7 over
+    mask_words' premasked B: the in-kernel keep decision is the same
+    function of (seed, row, word)."""
+    rng = np.random.default_rng(n_users + d)
+    g = _graph(rng, n_users, n_items, nnz, cuda)
+    m, kw = g.B.shape
+    x_cols = torch.randn(kw * 32, d, device=cuda)
+    x_rows = torch.randn(m, d, device=cuda)
+    before = dict(_build.LAUNCHES)
+    got_f = bitpack.mm_fwd_masked(g.B, x_cols, seed, p)
+    got_b = bitpack.mm_bwd_masked(g.B, x_rows, seed, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K6m"] == before["K6m"] + 1
+    assert _build.LAUNCHES["K7m"] == before["K7m"] + 1
+    torch.testing.assert_close(got_f, bitpack.mm_fwd_masked_plain(g.B, x_cols, seed, p),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_b, bitpack.mm_bwd_masked_plain(g.B, x_rows, seed, p),
+                               rtol=1e-5, atol=1e-4)
+    premasked = bitpack.mask_words(g.B, seed, p)
+    assert torch.equal(got_f, bitpack.mm_fwd(premasked, x_cols))
+    assert torch.equal(got_b, bitpack.mm_bwd(premasked, x_rows))
+    assert not torch.equal(got_f, bitpack.mm_fwd(g.B, x_cols))  # it drops
+
+
+def test_masked_bwd_kernel_is_deterministic(cuda):
+    rng = np.random.default_rng(2)
+    g = _graph(rng, 2000, 9000, 60000, cuda)
+    x = torch.randn(g.rows_padded, 64, device=cuda)
+    assert torch.equal(bitpack.mm_bwd_masked(g.B, x, 99, 0.1),
+                       bitpack.mm_bwd_masked(g.B, x, 99, 0.1))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_bb_matmul_dropped_grad_matches_plain(cuda, transpose):
+    """The backward runs the other masked orientation under the same seed."""
+    rng = np.random.default_rng(3)
+    g = _graph(rng, 700, 5000, 20000, cuda)
+    m, kw = g.B.shape
+    x = torch.randn((m if transpose else kw * 32), 64, device=cuda,
+                    requires_grad=True)
+    ct = torch.randn((kw * 32 if transpose else m), 64, device=cuda)
+    bitpack.bb_matmul_dropped(g.B, x, 41, 0.1, transpose).backward(ct)
+    plain = bitpack.mm_fwd_masked_plain if transpose else bitpack.mm_bwd_masked_plain
+    torch.testing.assert_close(x.grad, plain(g.B, ct, 41, 0.1), rtol=1e-5, atol=1e-4)
+
+
+def test_ngcf_step_on_the_card_matches_the_cpu(cuda):
+    """One NGCF BPR step's loss and gradients through the kernels against
+    the same step on the CPU's plain versions: same params, batch and drop."""
+    from igcn_cf_tpu_torch.convert import copy_params_, flatten_tree
+    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    ds = synthetic_interactions(n_users=300, n_items=500, avg_degree=12, seed=5)
+    model_cfg = {"name": "NGCF", "embedding_size": 64,
+                 "layer_sizes": [64, 64, 64], "dropout": 0.1}
+    trainer_cfg = {"name": "BPRTrainer", "optimizer": "Adam", "lr": 1e-3,
+                   "l2_reg": 1e-3, "n_epochs": 1, "batch_size": 256,
+                   "topks": [20], "seed": 3}
+    t_gpu = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds, "cuda"))
+    t_cpu = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds, "cpu"))
+    copy_params_(t_cpu.params, t_gpu.params)
+    (users, pos, neg), drop = t_gpu.sample_step()
+    before = dict(_build.LAUNCHES)
+    loss_g = t_gpu.loss(t_gpu.params, (users, pos, neg), drop)
+    grads_g = torch.autograd.grad(loss_g, list(t_gpu.flat_params.values()))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K6m"] == before["K6m"] + 6
+    assert _build.LAUNCHES["K7m"] == before["K7m"] + 6
+    to_cpu = lambda t: t.cpu()  # noqa: E731
+    drop_cpu = type(drop)(type(drop.edge)(drop.edge.seed_b, drop.edge.seed_bt,
+                                          to_cpu(drop.edge.keep_u),
+                                          to_cpu(drop.edge.keep_i)),
+                          [to_cpu(f) for f in drop.feat])
+    batch_cpu = tuple(map(to_cpu, (users, pos, neg)))
+    loss_c = t_cpu.loss(t_cpu.params, batch_cpu, drop_cpu)
+    grads_c = torch.autograd.grad(loss_c, list(t_cpu.flat_params.values()))
+    assert abs(float(loss_g.detach()) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for name, gg, gc in zip(flatten_tree(t_gpu.params), grads_g, grads_c):
+        scale = float(gc.abs().max())
+        assert float((gg.cpu() - gc).abs().max()) <= 1e-2 * scale, name
+
+
+def test_masked_wrappers_refuse_bad_operands(cuda):
+    wp = torch.zeros((512, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bitpack.mm_fwd_masked(wp, torch.zeros(100, 8, device=cuda), 1, 0.1)
+    with pytest.raises(ValueError):
+        bitpack.mm_bwd_masked(wp, torch.zeros(4096, 8, device=cuda), 1, 0.1)
+    with pytest.raises(ValueError):
+        bitpack.mm_fwd_masked(wp, torch.zeros(4096, 8, device=cuda), 2**32, 0.1)

@@ -50,7 +50,9 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
 
 @pytest.mark.parametrize("module", ["igcn_cf_tpu_torch.train.bpr",
                                     "igcn_cf_tpu_torch.kernels.pcache",
-                                    "igcn_cf_tpu_torch.evaluation.evaluate"])
+                                    "igcn_cf_tpu_torch.evaluation.evaluate",
+                                    "igcn_cf_tpu_torch.models.lightgcn",
+                                    "igcn_cf_tpu_torch.models.ngcf"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))

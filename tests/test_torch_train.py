@@ -21,7 +21,11 @@ from igcn_cf_tpu.evaluation import metrics as jax_metrics
 from igcn_cf_tpu.models.base import get_model as jax_get_model
 from igcn_cf_tpu.train.trainer import get_trainer as jax_get_trainer
 from igcn_cf_tpu_torch.configs import presets
-from igcn_cf_tpu_torch.convert import adam_state_from_jax, adam_state_to_jax
+from igcn_cf_tpu_torch.convert import (
+    adam_state_from_jax,
+    adam_state_to_jax,
+    copy_params_,
+)
 from igcn_cf_tpu_torch.core.prng import KeySeq, set_seed
 from igcn_cf_tpu_torch.data.sampler import (
     MAX_RETRIES,
@@ -68,9 +72,7 @@ def _trainers(jds, pds, prop_cache, model_cfg=MODEL_CFG, trainer_cfg=TRAINER_CFG
     pm = get_model(dict(model_cfg, prop_cache=prop_cache), pds)
     pt = get_trainer(dict(trainer_cfg), pds, pm)
     assert pm.pcache is jm.pcache is bool(prop_cache)
-    with torch.no_grad():
-        for name, value in jt.params.items():
-            pt.params[name].copy_(_t(value))
+    copy_params_(pt.params, jt.params)
     return jt, pt
 
 
