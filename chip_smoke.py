@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's IGCN serving and training paths, and LightGCN
-and NGCF training, once on one NVIDIA H100.
+"""Drive the PyTorch port's IGCN serving and training paths, LightGCN and
+NGCF training, and the two kernel-microbenchmark tools, once on one NVIDIA
+H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -51,11 +52,25 @@ Phases, each fatal on failure:
      at that model's eval shape (d=64, then NGCF's d=256) against its plain
      version, as in phase 6; then one NGCF step through the kernels against
      the same step through the plain versions.
+  8. microbenchmark tools -- with NGCF freed: K1m/K2m (the in-kernel masked
+     transposed pair) small and on the full B at IGCN's d=64 and p=0.3 with
+     two seeds near the top of the u32 range, against their plain versions
+     and bit-equal to K1/K2 over mask_words(B, seed); bbt_pair_dropped's
+     gradients against the plain pair's; the three forms of the dropped
+     feature aggregation (old-path, bbt-drop, premask) on the full B with
+     the same draws, outputs and gradients; T1/T2 (the 4-D fused gather
+     kernels) on the tool's full-shape random P against their plain
+     versions and against K3/K4 on the same P. Then both tools' ``main()``
+     (``igcn_cf_tpu_torch.tools.microbench_dual`` and ``microbench_pcache``)
+     print their rows, with the counts set to 0 just before: K1m, K2m, T1
+     and T2 must launch there, and on no earlier path.
+  9. output  -- a JSON line of the kernels (each with its launches, error,
+     ms, plain version's ms, bound from this run's inputs and the data
+     sheet, and the library yardstick's ms or null), the nvidia-smi line,
+     and last ``{"ok": true, "device": {...}}``.
 
 Every model and trainer config is the user's Gowalla preset from
 ``configs.get_config``, cut to one epoch.
-  8. output  -- a JSON line of the kernels, the nvidia-smi line, and last
-     ``{"ok": true, "device": {...}}``.
 
 The dataset is cached in ``.smoke/`` (generated in about a minute if absent).
 """
@@ -69,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -96,6 +112,11 @@ REP_RTOL, REP_ATOL = 2e-3, 1e-5  # bf16 re-rounding between layers
 # K3/K4 against f32 matmuls of the same bf16 operands: the sums run in
 # another order (mma tiles) over 70,912 terms
 GATHER_RTOL, GATHER_ATOL = 1e-4, 1e-5
+# T1/T2 and K3/K4 on the tool's random N(0,1) P: sums of 73,728 (forward)
+# or 6,144 (backward) products reach about +-1,000, where any two f32
+# summation orders differ by ~1e-3, so outputs near zero cannot meet an
+# elementwise rtol. There the error is held, with the same constants,
+# against the output's largest magnitude (assert_close_scaled).
 # one train step, kernels vs plain versions: the loss within 1e-5
 # relative; each gradient within 1e-2 of its largest magnitude, because the
 # backward rounds cotangents to bf16 and a sum-order difference upstream can
@@ -126,10 +147,24 @@ KERNELS = {
     "K8": ("mask_words: B & keepword (counterpart of mask_words_hw)",
            "igcn_cf_tpu_torch/csrc/mask_words.cu",
            "igcn_cf_tpu/kernels/bitpack.py:609"),
+    "K1m": ("bbt_pair_dropped t1: y1t = ((B o M1) @ X1)^T, keep mask in the kernel",
+            "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
+            "igcn_cf_tpu/kernels/bitpack.py:498"),
+    "K2m": ("bbt_pair_dropped t2: y2t = ((B o M2)^T @ X2)^T, keep mask in the kernel",
+            "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
+            "igcn_cf_tpu/kernels/bitpack.py:529"),
+    "T1": ("fused_fwd_4d: P4[rows] @ X0, one block per TR rows",
+           "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:91"),
+    "T2": ("fused_bwd_4d: P4[rows]^T @ ct, one block per 128 columns",
+           "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:178"),
 }
 SERVE_KERNELS = ("K1", "K2", "K5")
 TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 GCN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
+TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K1m",
+                "K2m", "T1", "T2")
+# launched by the two microbenchmark tools and nowhere else
+TOOL_ONLY = ("K1m", "K2m", "T1", "T2")
 
 
 def log(msg: str) -> None:
@@ -150,6 +185,96 @@ def gowalla_preset(name):
 
     _, model_cfg, trainer_cfg = get_config("gowalla", PRESETS[name])
     return model_cfg, dict(trainer_cfg, n_epochs=1, seed=SEED)
+
+
+# -- bounds and library yardsticks ------------------------------------------------
+
+
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take for a call that moves ``nbytes``
+    (each input read once, each output written once) and does ``flops`` at
+    the data sheet's ``kind`` ('bf16' tensor-core or 'fp32') peak."""
+    import torch
+
+    from igcn_cf_tpu_torch.tools import bound_ms, datasheet
+
+    peaks = datasheet(torch.cuda.get_device_name(0))
+    ms, by = bound_ms(nbytes, flops,
+                      peaks.bf16_flops if kind == "bf16" else peaks.fp32_flops,
+                      peaks.hbm_bytes_s)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def product_bound(words, n_in: int, n_out: int, d: int, nnz: int) -> dict:
+    """A bit-packed product (K1/K2/K6/K7 and their masked variants): the
+    words and X (f32, as the wrapper takes it) read, Y (f32) written, and
+    2 * d FLOP per set bit of this run's B, on the CUDA cores."""
+    return bound(words.numel() * 4 + (n_in + n_out) * d * 4, 2 * nnz * d,
+                 "fp32")
+
+
+def gather_bound(r: int, npad: int, d: int, x_bytes: int, out_bytes: int) -> dict:
+    """A gather-matmul (K3/K4/T1/T2): the R gathered rows of P, X and the
+    output moved once, 2 * R * npad * d FLOP on the tensor cores."""
+    return bound(r * npad * 2 + x_bytes + out_bytes, 2 * r * npad * d, "bf16")
+
+
+def csr_pair(words):
+    """The 0/1 matrix of packed ``words`` and its transpose as CUDA CSR f32
+    tensors, and the number of set bits: the operands of the library
+    yardstick ``torch.sparse.mm``, built outside any timing."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels.bitpack import unpack_bits
+
+    m, k = words.shape[0], words.shape[1] * 32
+    idx = []
+    for r0 in range(0, m, 2048):
+        nz = unpack_bits(words[r0:r0 + 2048]).nonzero()
+        nz[:, 0] += r0
+        idx.append(nz)
+    idx = torch.cat(idx).T.contiguous()
+    ones = torch.ones(idx.shape[1], device=words.device)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        b, bt = (torch.sparse_coo_tensor(i, ones, size, check_invariants=False)
+                 .coalesce().to_sparse_csr()
+                 for i, size in ((idx, (m, k)), (idx.flip(0), (k, m))))
+    return b, bt, idx.shape[1]
+
+
+def sparse_yardstick(csr, x, words, n_out: int, nnz: int) -> dict:
+    """``library_ms`` of ``torch.sparse.mm(csr, x)``, x (n_in, d) f32, and
+    the bound of the bit-packed product it stands beside."""
+    import torch
+
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    return dict(library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x)),
+                **product_bound(words, x.shape[0], n_out, x.shape[1], nnz))
+
+
+def assert_close_scaled(got, want, rtol=GATHER_RTOL, atol=GATHER_ATOL) -> float:
+    """max |got - want| <= rtol * max |want| + atol; returns the error."""
+    err = float((got - want).abs().max())
+    limit = rtol * float(want.abs().max()) + atol
+    if not err <= limit:
+        raise AssertionError(f"max abs error {err:.4g} over {limit:.4g} "
+                             f"(rtol {rtol} of the largest magnitude + {atol})")
+    return err
+
+
+def gather_library_ms(p, rows, x, transpose: bool) -> float:
+    """The short torch sequence of a gather-matmul: index_select, then a
+    bf16 cuBLAS product (f32 sums, bf16 out)."""
+    import torch
+
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    xb = x.to(torch.bfloat16)
+    if transpose:
+        return cuda_ms(lambda: p.index_select(0, rows).T @ xb)
+    return cuda_ms(lambda: p.index_select(0, rows) @ xb)
 
 
 # -- phase 1: device ------------------------------------------------------------
@@ -209,8 +334,11 @@ def check_pair(rng, pairs, n_users, n_items, d, timed):
     x1t = torch.as_tensor(rng.standard_normal((d, kw * 32), np.float32)).to("cuda")
     x2t = torch.as_tensor(rng.standard_normal((d, m), np.float32)).to("cuda")
     out = {}
-    for name, kern, plain, x in (("K1", bitpack.t1, bitpack.t1_plain, x1t),
-                                 ("K2", bitpack.t2, bitpack.t2_plain, x2t)):
+    if timed:
+        b, bt, nnz = csr_pair(g.B)
+    for name, kern, plain, x, n_out in (("K1", bitpack.t1, bitpack.t1_plain, x1t, m),
+                                        ("K2", bitpack.t2, bitpack.t2_plain, x2t,
+                                         kw * 32)):
         got = kern(g.B, x)
         want = plain(g.B, x)
         sync()
@@ -218,11 +346,16 @@ def check_pair(rng, pairs, n_users, n_items, d, timed):
         torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
         out[name] = {"max_abs_err": err}
         if timed:
-            out[name]["ms"] = cuda_ms(lambda: kern(g.B, x))
-            out[name]["plain_ms"] = cuda_ms(lambda: plain(g.B, x), reps=5)
+            out[name].update(
+                ms=cuda_ms(lambda: kern(g.B, x)),
+                plain_ms=cuda_ms(lambda: plain(g.B, x), reps=5),
+                **sparse_yardstick(b if name == "K1" else bt, x.T.contiguous(),
+                                   g.B, n_out, nnz))
         log(f"# {name} B {m}x{kw} words ({int(g.deg_u.sum())} bits) d={d}: "
             f"max_abs_err {err:.3g}"
-            + (f", {out[name]['ms']:.4f} ms vs plain {out[name]['plain_ms']:.4f} ms"
+            + (f", {out[name]['ms']:.4f} ms vs plain {out[name]['plain_ms']:.4f} "
+               f"ms, torch.sparse.mm {out[name]['library_ms']:.4f} ms, bound "
+               f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})"
                if timed else ""))
     return out
 
@@ -300,9 +433,16 @@ def check_topk(rng, n, n_items, nip, li, d, k, timed):
                 out["plain_ms"] = cuda_ms(
                     lambda: fused_topk_ids_plain(ur, it, excl, banned, k=k, li=li),
                     reps=5)
+                # users, items, exclusion words and banned row read, ids
+                # written; the f32 scores on the CUDA cores. No one torch
+                # call computes masked top-k ids.
+                out.update(library_ms=None, **bound(
+                    (n * d + d * nip + excl.numel() + nip + n * k) * 4,
+                    2 * n * nip * d, "fp32"))
         log(f"# K5 {kind} n={n} items={n_items} (pad {nip}) d={d} k={k}: "
             f"{same}/{n} rows identical, max score gap {gap:.3g}"
-            + (f", {out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms"
+            + (f", {out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, bound "
+               f"{out['bound_ms']:.4f} ms ({out['bound_by']})"
                if timed and kind == "normal" else ""))
     return out
 
@@ -320,19 +460,25 @@ def check_matmul_and_mask(rng, full):
 
     g = BipartiteDense.build(full.train_array, full.n_users, full.n_items, "cuda")
     m, kw = g.B.shape
+    b, bt, nnz = csr_pair(g.B)
     out = {}
-    for name, kern, plain, rows in (("K6", bitpack.mm_fwd, bitpack.mm_fwd_plain, kw * 32),
-                                    ("K7", bitpack.mm_bwd, bitpack.mm_bwd_plain, m)):
+    for name, kern, plain, rows, csr in (
+            ("K6", bitpack.mm_fwd, bitpack.mm_fwd_plain, kw * 32, b),
+            ("K7", bitpack.mm_bwd, bitpack.mm_bwd_plain, m, bt)):
         x = torch.as_tensor(rng.standard_normal((rows, 128), np.float32)).to("cuda")
         got, want = kern(g.B, x), plain(g.B, x)
         sync()
         torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
         out[name] = {"max_abs_err": float((got - want).abs().max()),
                      "ms": cuda_ms(lambda: kern(g.B, x)),
-                     "plain_ms": cuda_ms(lambda: plain(g.B, x), reps=5)}
+                     "plain_ms": cuda_ms(lambda: plain(g.B, x), reps=5),
+                     **sparse_yardstick(csr, x, g.B, got.shape[0], nnz)}
         log(f"# {name} B {m}x{kw} words, X {rows}x128: max_abs_err "
             f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms vs plain "
-            f"{out[name]['plain_ms']:.4f} ms")
+            f"{out[name]['plain_ms']:.4f} ms, torch.sparse.mm "
+            f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
+            f"ms ({out[name]['bound_by']})")
+    del b, bt
     seed = 2**32 - 12345  # near the top of the u32 range
     p = gowalla_preset("IGCN")[0]["dropout"]
     got = bitpack.mask_words(g.B, seed, p)
@@ -342,23 +488,26 @@ def check_matmul_and_mask(rng, full):
         raise AssertionError("K8 mask differs from its plain version")
     kept = int(bitpack.unpack_bits(got[:2048]).sum())
     total = int(bitpack.unpack_bits(g.B[:2048]).sum())
+    # the words read and the masked words written; no torch call hashes
     out["K8"] = {"max_abs_err": 0.0,
                  "ms": cuda_ms(lambda: bitpack.mask_words(g.B, seed, p)),
                  "plain_ms": cuda_ms(lambda: bitpack.mask_words_plain(g.B, seed, p),
-                                     reps=5)}
+                                     reps=5),
+                 "library_ms": None, **bound(2 * g.B.numel() * 4, 0, "fp32")}
     log(f"# K8 mask over B {m}x{kw} words, p={p}: bit-equal, kept "
         f"{kept}/{total} edges of the first 2048 rows (expect "
         f"{1 - round(p * 256) / 256:.4f}), {out['K8']['ms']:.4f} ms vs plain "
-        f"{out['K8']['plain_ms']:.4f} ms")
+        f"{out['K8']['plain_ms']:.4f} ms, bound {out['K8']['bound_ms']:.4f} ms")
 
     ngcf = gowalla_preset("NGCF")[0]
     d, p, seed = ngcf["embedding_size"], ngcf["dropout"], 2**32 - 777
     premasked = bitpack.mask_words(g.B, seed, p)
-    for name, kern, plain, unmasked, rows in (
+    b, bt, nnz = csr_pair(premasked)
+    for name, kern, plain, unmasked, rows, csr in (
             ("K6m", bitpack.mm_fwd_masked, bitpack.mm_fwd_masked_plain,
-             bitpack.mm_fwd, kw * 32),
+             bitpack.mm_fwd, kw * 32, b),
             ("K7m", bitpack.mm_bwd_masked, bitpack.mm_bwd_masked_plain,
-             bitpack.mm_bwd, m)):
+             bitpack.mm_bwd, m, bt)):
         x = torch.as_tensor(rng.standard_normal((rows, d), np.float32)).to("cuda")
         got, want = kern(g.B, x, seed, p), plain(g.B, x, seed, p)
         sync()
@@ -369,11 +518,14 @@ def check_matmul_and_mask(rng, full):
         out[name] = {"max_abs_err": float((got - want).abs().max()),
                      "ms": cuda_ms(lambda: kern(g.B, x, seed, p)),
                      "plain_ms": cuda_ms(lambda: plain(g.B, x, seed, p), reps=3,
-                                         warmup=1)}
+                                         warmup=1),
+                     **sparse_yardstick(csr, x, g.B, got.shape[0], nnz)}
         log(f"# {name} B {m}x{kw} words, X {rows}x{d}, p={p}: max_abs_err "
             f"{out[name]['max_abs_err']:.3g}, bit-equal to the unmasked kernel "
             f"over mask_words(B), {out[name]['ms']:.4f} ms vs plain "
-            f"{out[name]['plain_ms']:.4f} ms")
+            f"{out[name]['plain_ms']:.4f} ms, torch.sparse.mm of the masked B "
+            f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
+            f"ms ({out[name]['bound_by']})")
     return out
 
 
@@ -653,6 +805,7 @@ def check_gather(trainer):
     x0b = torch.randn((p.shape[1], 64), generator=gen, device="cuda").to(torch.bfloat16)
     ctb = torch.randn((rows.shape[0], 64), generator=gen, device="cuda").to(torch.bfloat16)
     out = {}
+    r, npad = rows.shape[0], p.shape[1]
     for name, kern, plain, x in (("K3", pcache.gather_fwd, pcache.gather_fwd_plain, x0b),
                                  ("K4", pcache.gather_bwd, pcache.gather_bwd_plain, ctb)):
         got, want = kern(p, rows, x), plain(p, rows, x)
@@ -660,10 +813,14 @@ def check_gather(trainer):
         torch.testing.assert_close(got, want, rtol=GATHER_RTOL, atol=GATHER_ATOL)
         out[name] = {"max_abs_err": float((got - want).abs().max()),
                      "ms": cuda_ms(lambda: kern(p, rows, x)),
-                     "plain_ms": cuda_ms(lambda: plain(p, rows, x), reps=5)}
-        log(f"# {name} R={rows.shape[0]} on P {tuple(p.shape)}: max_abs_err "
+                     "plain_ms": cuda_ms(lambda: plain(p, rows, x), reps=5),
+                     "library_ms": gather_library_ms(p, rows, x, name == "K4"),
+                     **gather_bound(r, npad, 64, x.numel() * 2, got.numel() * 4)}
+        log(f"# {name} R={r} on P {tuple(p.shape)}: max_abs_err "
             f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms vs plain "
-            f"{out[name]['plain_ms']:.4f} ms")
+            f"{out[name]['plain_ms']:.4f} ms, index_select + bf16 matmul "
+            f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
+            f"ms ({out[name]['bound_by']})")
     again = pcache.gather_bwd(p, rows, ctb)
     if not torch.equal(again, pcache.gather_bwd(p, rows, ctb)):
         raise AssertionError("K4 is not deterministic")
@@ -818,6 +975,165 @@ def phase_gcn(full):
     return launches
 
 
+# -- phase 8: the kernel-microbenchmark tools ---------------------------------------
+
+
+def check_dropped_pair(rng, full):
+    """K1m/K2m, small and on the full B at IGCN's width and dropout with two
+    seeds near the top of the u32 range: against their plain versions and
+    bit-equal to K1/K2 over mask_words(B, seed); the dropped pair's
+    gradients against the plain pair's; the three in-situ forms of the
+    dropped feature aggregation on the same seeds and token keeps."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import bitpack
+    from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense, FeatDrop
+    from igcn_cf_tpu_torch.tools import microbench_dual as mdual
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    model_cfg = gowalla_preset("IGCN")[0]
+    d, p = model_cfg["embedding_size"], model_cfg["dropout"]
+    seeds = {"K1m": 2**32 - 4321, "K2m": 2**32 - 98765}
+    out = {}
+    for timed, (pairs, n_users, n_items) in (
+            (False, (random_pairs(rng, 300, 400, 12000), 300, 400)),
+            (True, (full.train_array, full.n_users, full.n_items))):
+        g = BipartiteDense.build(pairs, n_users, n_items, "cuda")
+        m, kw = g.B.shape
+        xs = {"K1m": (d, kw * 32), "K2m": (d, m)}
+        for name, kern, plain, unmasked, n_out in (
+                ("K1m", bitpack.t1_masked, bitpack.t1_masked_plain, bitpack.t1, m),
+                ("K2m", bitpack.t2_masked, bitpack.t2_masked_plain, bitpack.t2,
+                 kw * 32)):
+            seed = seeds[name]
+            x = torch.as_tensor(rng.standard_normal(xs[name], np.float32)).to("cuda")
+            got, want = kern(g.B, x, seed, p), plain(g.B, x, seed, p)
+            sync()
+            torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+            premasked = bitpack.mask_words(g.B, seed, p)
+            if not torch.equal(got, unmasked(premasked, x)):
+                raise AssertionError(f"{name} differs from the unmasked kernel "
+                                     "over the mask_words copy of B")
+            err = float((got - want).abs().max())
+            if timed:
+                b, bt, nnz = csr_pair(premasked)
+                out[name] = {"max_abs_err": err,
+                             "ms": cuda_ms(lambda: kern(g.B, x, seed, p)),
+                             "plain_ms": cuda_ms(lambda: plain(g.B, x, seed, p),
+                                                 reps=3, warmup=1),
+                             **sparse_yardstick(b if name == "K1m" else bt,
+                                                x.T.contiguous(), g.B, n_out, nnz)}
+                del b, bt
+            log(f"# {name} B {m}x{kw} words, d={d}, p={p}, seed {seed}: "
+                f"max_abs_err {err:.3g}, bit-equal to the unmasked kernel over "
+                f"mask_words(B)"
+                + (f", {out[name]['ms']:.4f} ms vs plain "
+                   f"{out[name]['plain_ms']:.4f} ms, torch.sparse.mm of the "
+                   f"masked B {out[name]['library_ms']:.4f} ms, bound "
+                   f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})"
+                   if timed else ""))
+
+    # the dropped pair's VJP on the full B: directions swap, seeds stay
+    x1t = torch.randn(d, kw * 32, device="cuda", requires_grad=True)
+    x2t = torch.randn(d, m, device="cuda", requires_grad=True)
+    c1, c2 = torch.randn(d, m, device="cuda"), torch.randn(d, kw * 32, device="cuda")
+    s1, s2 = seeds["K1m"], seeds["K2m"]
+    y1t, y2t = bitpack.bbt_pair_dropped(g.B, x1t, x2t, s1, s2, p)
+    torch.autograd.backward((y1t, y2t), (c1, c2))
+    for grad, want in ((x1t.grad, bitpack.t2_masked_plain(g.B, c1, s1, p)),
+                       (x2t.grad, bitpack.t1_masked_plain(g.B, c2, s2, p))):
+        torch.testing.assert_close(grad, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+    log("# bbt_pair_dropped gradients on the full B match the plain pair's "
+        "(directions swapped, each with its own seed)")
+
+    # the three in-situ forms on the same seeds and token keeps
+    args = [torch.as_tensor(rng.standard_normal(shape, np.float32)).to("cuda")
+            for shape in ((full.n_items, d), (full.n_users, d), (d,), (d,))]
+    args += [torch.as_tensor(rng.random(n, np.float32)).to("cuda")
+             for n in (full.n_users, full.n_items)]
+    drop = FeatDrop(s1, s2, *mdual.token_keeps(g, p))
+    ct = torch.randn(full.n_users + full.n_items, d, device="cuda")
+    results = {}
+    for name, fn in mdual.VARIANTS:
+        leaves = [a.clone().requires_grad_() for a in args[:2]]
+        y = fn(g, *leaves, *args[2:], dropout=p, drop=drop)
+        results[name] = (y.detach(), *torch.autograd.grad(y, leaves, ct))
+    ref_name, ref = next(iter(results.items()))
+    same = []
+    for name, res in results.items():
+        for a, b in zip(res, ref):
+            torch.testing.assert_close(a, b, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+        equal = all(map(torch.equal, res, ref))
+        same.append(f"{name} {'bit-equal' if equal else 'close'}")
+    log(f"# feat_aggregate dropped, three forms on the full B, d={d}, p={p}: "
+        f"outputs and gradients against {ref_name}: {', '.join(same)}")
+    return out
+
+
+def check_fused_4d():
+    """T1/T2 on the tool's full-shape random P against their plain versions
+    and against K3/K4 on the same (row-major) P; T2 deterministic."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import pcache
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    p, rows, x0, ct = mpc.random_inputs("cuda")
+    p4 = mpc.to4d(p, mpc.NJ)
+    r, npad, d = rows.shape[0], p.shape[1], x0.shape[1]
+    out = {}
+    for name, kern, plain, k34, x, ref in (
+            ("T1", mpc.fused_fwd_4d, mpc.fused_fwd_4d_plain, pcache.gather_fwd,
+             x0, "K3"),
+            ("T2", mpc.fused_bwd_4d, mpc.fused_bwd_4d_plain, pcache.gather_bwd,
+             ct, "K4")):
+        xb = x.to(torch.bfloat16)
+        got, want = kern(p4, rows, x, mpc.TR), plain(p4, rows, x)
+        other = k34(p, rows, xb)
+        sync()
+        err = assert_close_scaled(got, want)
+        ref_err = assert_close_scaled(other, want)
+        diff = assert_close_scaled(got, other)
+        out[name] = {"max_abs_err": err,
+                     "ms": cuda_ms(lambda: kern(p4, rows, x, mpc.TR)),
+                     "plain_ms": cuda_ms(lambda: plain(p4, rows, x), reps=5),
+                     "library_ms": gather_library_ms(p, rows, x, name == "T2"),
+                     **gather_bound(r, npad, d, x.numel() * 4, got.numel() * 4)}
+        ref_ms = cuda_ms(lambda: k34(p, rows, xb))
+        log(f"# {name} on the tool's P {tuple(p4.shape)} (R={r}, TR={mpc.TR}, "
+            f"NJ={mpc.NJ}), outputs up to {float(want.abs().max()):.4g}: "
+            f"max_abs_err {err:.3g} ({ref} {ref_err:.3g}, max diff to {ref} "
+            f"{diff:.3g}); "
+            f"{out[name]['ms']:.4f} ms vs {ref} {ref_ms:.4f} ms, plain "
+            f"{out[name]['plain_ms']:.4f} ms, index_select + bf16 matmul "
+            f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
+            f"ms ({out[name]['bound_by']})")
+    if not torch.equal(mpc.fused_bwd_4d(p4, rows, ct), mpc.fused_bwd_4d(p4, rows, ct)):
+        raise AssertionError("T2 is not deterministic")
+    return out
+
+
+def phase_tools():
+    """Both tools' ``main()`` once, their rows printed, with the counts set
+    to 0 just before and read just after: the slice's main path. Returns
+    its launch counts."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.tools import microbench_dual, microbench_pcache
+
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    microbench_dual.main([])
+    torch.cuda.empty_cache()
+    microbench_pcache.main()
+    launches = dict(_build.LAUNCHES)
+    log(f"# launches during the two microbenchmark tools: {launches}")
+    check_launches(launches, TOOL_KERNELS, "microbenchmark")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -837,14 +1153,23 @@ def main() -> int:
     del trainer, trainer_rc  # and their 10 GB P
     torch.cuda.empty_cache()
     gcn_launches = phase_gcn(full)
+    torch.cuda.empty_cache()
+    earlier = [serve_launches, train_launches, gcn_launches]
+    stray = {k: sum(run[k] for run in earlier) for k in TOOL_ONLY}
+    if any(stray.values()):
+        raise AssertionError(f"the tools' kernels launched on an earlier path: "
+                             f"{stray}")
+    kern.update(check_dropped_pair(np.random.default_rng(1), full))
+    kern.update(check_fused_4d())
+    tool_launches = phase_tools()
     rows = []
     for name, (what, source, replaces) in KERNELS.items():
         rows.append({"name": f"{name} {what}", "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": (serve_launches[name] + train_launches[name]
-                                  + gcn_launches[name]),
-                     "max_abs_err": kern[name]["max_abs_err"],
-                     "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]})
+                     "launches": sum(run[name] for run in earlier + [tool_launches]),
+                     **{key: kern[name][key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,11 +36,12 @@
 // their strided word loads share 32-byte sectors.
 //
 // Both bodies also serve K6/K7, the bb_matmul pair (entries at the end), and
-// take a compile-time MASKED flag for its edge-dropout variant: each word a
-// lane loads is ANDed with the keep word of its (row, word) coordinate
-// (keepword.cuh) before the ballot. The keep decision is a function of
-// (seed, row, word) only, so K6m and K7m drop the same edges, and equal the
-// unmasked kernels run over mask_words' masked copy of B. Zero words stay
+// take a compile-time MASKED flag for the edge-dropout variants (K1m/K2m of
+// the pair, K6m/K7m of bb_matmul): each word a lane loads is ANDed with the
+// keep word of its (row, word) coordinate (keepword.cuh) before the ballot.
+// The keep decision is a function of (seed, row, word) only, so the two
+// directions under one seed drop the same edges, and equal the unmasked
+// kernels run over mask_words' masked copy of B. Zero words stay
 // zero and skip the hash: it runs on the ~2% of words that hold an edge.
 // With MASKED false the bodies are the code they were before the flag.
 
@@ -240,6 +241,22 @@ int igcn_t1(const void* wp, const void* x1, void* y1, int m, int kw, int d,
 int igcn_t2(const void* wp, const void* x2, void* y2, int m, int kw, int d,
             void* stream) {
   return run_t2<false>(wp, x2, y2, m, kw, d, 0u, 0, stream);
+}
+
+// K1m and K2m: the transposed pair with the keep mask inside the kernel,
+// _t1_pallas/_t2_pallas with masked=True, which bbt_pair_dropped reaches
+// (igcn_cf_tpu/kernels/bitpack.py:745). They run the masked bodies that
+// K6m/K7m run; entries of their own so that each direction of the pair is
+// launched, counted and checked apart. seed is the u32 mask seed, thr =
+// round(p * 256); no 1/(1-p) rescale.
+int igcn_t1_masked(const void* wp, const void* x1, void* y1, int m, int kw,
+                   int d, unsigned int seed, int thr, void* stream) {
+  return run_t1<true>(wp, x1, y1, m, kw, d, (uint32_t)seed, thr, stream);
+}
+
+int igcn_t2_masked(const void* wp, const void* x2, void* y2, int m, int kw,
+                   int d, unsigned int seed, int thr, void* stream) {
+  return run_t2<true>(wp, x2, y2, m, kw, d, (uint32_t)seed, thr, stream);
 }
 
 // K6 and K7: the bb_matmul pair of the JAX package,

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.kernels.bitpack import packed_lookup
 
 MAX_RETRIES = 16
@@ -55,7 +56,7 @@ class DeviceNegativeSampler:
         return replace(self, dense_b=dense_b)
 
     @staticmethod
-    def build(ds, device="cpu") -> "DeviceNegativeSampler":
+    def build(ds, device="cuda") -> "DeviceNegativeSampler":
         n_users, n_items = ds.n_users, ds.n_items
         arr = np.asarray(ds.train_array, np.int64).reshape(-1, 2)
         degs = np.bincount(arr[:, 0], minlength=n_users)[:n_users]
@@ -65,7 +66,7 @@ class DeviceNegativeSampler:
         max_deg = max(1, int(degs.max()) if n_users else 1)
         padded = np.full((n_users, max_deg), n_items, dtype=np.int64)
         padded[users, np.arange(len(users)) - starts[users]] = items
-        dev = torch.device(device)
+        dev = _build.require_device(device)
         return DeviceNegativeSampler(
             active_users=torch.as_tensor(np.nonzero(degs > 0)[0]).to(dev),
             user_items=torch.as_tensor(padded).to(dev),

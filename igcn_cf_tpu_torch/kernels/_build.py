@@ -33,9 +33,11 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # Launches of each kernel, counted by its wrapper right after a launch that
 # returned no error. A run resets them to show which kernels it went through.
-# K6m/K7m are the masked variants of K6/K7 (edge dropout inside the kernel).
+# K1m/K2m and K6m/K7m are the masked variants of K1/K2 and K6/K7 (edge
+# dropout inside the kernel); T1/T2 are the 4-D gather kernels of
+# ``tools/microbench_pcache``.
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K6m": 0, "K7m": 0, "K8": 0}
+            "K6m": 0, "K7m": 0, "K8": 0, "K1m": 0, "K2m": 0, "T1": 0, "T2": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,10 @@ _SIGNATURES = {
     "igcn_t1": (_P, _P, _P, _I, _I, _I, _P),
     # (wp, x2 (m, d) bf16, y2 (K, d) f32, m, kw, d, stream)
     "igcn_t2": (_P, _P, _P, _I, _I, _I, _P),
+    # (wp, x1 (K, d) bf16, y1 (m, d) f32, m, kw, d, seed, thr, stream)
+    "igcn_t1_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
+    # (wp, x2 (m, d) bf16, y2 (K, d) f32, m, kw, d, seed, thr, stream)
+    "igcn_t2_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
     # (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, stream)
     "igcn_bb_fwd": (_P, _P, _P, _I, _I, _I, _P),
     # (wp, x (m, d) bf16, y (K, d) f32, m, kw, d, stream)
@@ -62,6 +68,10 @@ _SIGNATURES = {
     "igcn_gather_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (p, rows, ct, dx, n, npad, r, dpad, stream)
     "igcn_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (p4, rows, x0, out, n, nj, tkc, r, dpad, tr, stream)
+    "igcn_fused_fwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (p4, rows, ct, dx, n, nj, tkc, r, dpad, tr, stream)
+    "igcn_fused_bwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (users, items_t, excl, banned, part_v, part_i, out,
     #  n_users, n_items_pad, d, k, li, stream)
     "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -73,6 +83,19 @@ _lib = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device, refused when it names CUDA and no card
+    is visible: an entry point that defaults to the card raises there and
+    never carries on on the CPU. Pass ``device="cpu"`` for the plain
+    versions."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA card is available; pass "
+            "device='cpu' to run the plain versions on the CPU")
+    return device
 
 
 def on_cuda(t: torch.Tensor) -> bool:

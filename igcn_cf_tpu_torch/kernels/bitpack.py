@@ -26,8 +26,11 @@ the pair with directions swapped. ``bb_matmul(wp, x, transpose)`` is
 B @ X or B^T @ X on row-major (n, d) X -- kernels K6/K7, which the
 propagation-cache build runs. ``bb_matmul_dropped(wp, x, seed, p,
 transpose)`` is the same product with edge dropout applied inside the
-kernels (K6m/K7m), as NGCF trains. ``mask_words(wp, seed, p)`` applies the
-coordinate-hashed keep mask, bit-identical to the JAX package.
+kernels (K6m/K7m), as NGCF trains. ``bbt_pair_dropped(wp, x1t, x2t, seed1,
+seed2, p)`` is the transposed pair with the same in-kernel dropout
+(K1m/K2m), which the kernel microbenchmark compares with the premasked
+pair. ``mask_words(wp, seed, p)`` applies the coordinate-hashed keep mask,
+bit-identical to the JAX package.
 
 X operands are rounded to bf16 and summed in f32, as the JAX kernels do.
 CUDA tensors go to the hand-written kernels in ``csrc/`` (``bbt_pair.cu``,
@@ -156,25 +159,29 @@ def _bf16_rows(xt: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _t1_cuda(wp: torch.Tensor, x1t: torch.Tensor) -> torch.Tensor:
+def _t1_cuda(entry: str, kid: str, wp: torch.Tensor, x1t: torch.Tensor,
+             *mask) -> torch.Tensor:
+    """Launch a t1 entry; ``mask`` is (seed, thr) for the masked one."""
     m, kw = wp.shape
     _check_pair_operands(wp, x1t, kw * 32, "x1t")
     x1 = _bf16_rows(x1t)
     d = x1.shape[1]
     y1 = torch.empty((m, d), dtype=torch.float32, device=wp.device)
-    _build.launch("igcn_t1", wp, x1, y1, m, kw, d)
-    _build.LAUNCHES["K1"] += 1
+    _build.launch(entry, wp, x1, y1, m, kw, d, *mask)
+    _build.LAUNCHES[kid] += 1
     return y1.T
 
 
-def _t2_cuda(wp: torch.Tensor, x2t: torch.Tensor) -> torch.Tensor:
+def _t2_cuda(entry: str, kid: str, wp: torch.Tensor, x2t: torch.Tensor,
+             *mask) -> torch.Tensor:
+    """Launch a t2 entry; ``mask`` is (seed, thr) for the masked one."""
     m, kw = wp.shape
     _check_pair_operands(wp, x2t, m, "x2t")
     x2 = _bf16_rows(x2t)
     d = x2.shape[1]
     y2 = torch.empty((kw * 32, d), dtype=torch.float32, device=wp.device)
-    _build.launch("igcn_t2", wp, x2, y2, m, kw, d)
-    _build.LAUNCHES["K2"] += 1
+    _build.launch(entry, wp, x2, y2, m, kw, d, *mask)
+    _build.LAUNCHES[kid] += 1
     return y2.T
 
 
@@ -182,7 +189,7 @@ def t1(wp: torch.Tensor, x1t: torch.Tensor) -> torch.Tensor:
     """K1: y1t (d, m) = (B @ X1)^T. CUDA tensors launch the kernel; CPU
     tensors take ``t1_plain``."""
     if _build.on_cuda(wp):
-        return _t1_cuda(wp, x1t)
+        return _t1_cuda("igcn_t1", "K1", wp, x1t)
     return t1_plain(wp, x1t)
 
 
@@ -190,7 +197,7 @@ def t2(wp: torch.Tensor, x2t: torch.Tensor) -> torch.Tensor:
     """K2: y2t (d, K) = (B^T @ X2)^T over the same packed words, with no
     transposed copy of B."""
     if _build.on_cuda(wp):
-        return _t2_cuda(wp, x2t)
+        return _t2_cuda("igcn_t2", "K2", wp, x2t)
     return t2_plain(wp, x2t)
 
 
@@ -232,6 +239,65 @@ def bbt_pair(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
 def bbt_pair_plain(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
     """``bbt_pair``'s forward through the plain versions on any device."""
     return t1_plain(wp, x1t), t2_plain(wp, x2t)
+
+
+# -- the transposed pair with in-kernel dropout (K1m/K2m) ---------------------
+
+
+def t1_masked(wp: torch.Tensor, x1t: torch.Tensor, seed: int,
+              p: float) -> torch.Tensor:
+    """K1m: y1t (d, m) = ((B * M) @ X1)^T, the keep mask M of ``seed`` and
+    ``p`` applied to each word inside the kernel. Equal, bit for bit, to K1
+    over ``mask_words(wp, seed, p)``. CPU tensors take ``t1_masked_plain``."""
+    seed = _check_seed(seed)
+    if _build.on_cuda(wp):
+        return _t1_cuda("igcn_t1_masked", "K1m", wp, x1t, seed,
+                        _threshold_u8(p))
+    return t1_masked_plain(wp, x1t, seed, p)
+
+
+def t2_masked(wp: torch.Tensor, x2t: torch.Tensor, seed: int,
+              p: float) -> torch.Tensor:
+    """K2m: y2t (d, K) = ((B * M)^T @ X2)^T over the keep decisions of K1m
+    under the same seed."""
+    seed = _check_seed(seed)
+    if _build.on_cuda(wp):
+        return _t2_cuda("igcn_t2_masked", "K2m", wp, x2t, seed,
+                        _threshold_u8(p))
+    return t2_masked_plain(wp, x2t, seed, p)
+
+
+class _DroppedPairFn(torch.autograd.Function):
+    """y1t = t1_masked(B, x1t, seed1), y2t = t2_masked(B, x2t, seed2). The
+    backward swaps the directions and each cotangent keeps its own
+    direction's seed: dx2t, dx1t = pair(B, dy2t, dy1t, seed2, seed1)
+    (``igcn_cf_tpu/kernels/bitpack.py`` ``_bbtd_bwd``). The masks are
+    functions of (seed, row, word), so the backward sees the forward's
+    drops exactly."""
+
+    @staticmethod
+    def forward(ctx, wp, x1t, x2t, seed1, seed2, p):
+        ctx.save_for_backward(wp)
+        ctx.mask = (seed1, seed2, p)
+        return t1_masked(wp, x1t, seed1, p), t2_masked(wp, x2t, seed2, p)
+
+    @staticmethod
+    def backward(ctx, dy1t, dy2t):
+        (wp,) = ctx.saved_tensors
+        seed1, seed2, p = ctx.mask
+        dx1t = t2_masked(wp, dy1t, seed1, p) if ctx.needs_input_grad[1] else None
+        dx2t = t1_masked(wp, dy2t, seed2, p) if ctx.needs_input_grad[2] else None
+        return None, dx1t, dx2t, None, None, None
+
+
+def bbt_pair_dropped(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor,
+                     seed1: int, seed2: int, p: float):
+    """The transposed pair with edge dropout inside the kernels and without
+    the 1/(1-p) rescale: direction 1 drops with the u32 ``seed1``, direction
+    2 with ``seed2`` (the JAX package's ``bbt_pair_dropped`` given the seeds
+    its keys yield). Differentiable in x1t and x2t."""
+    return _DroppedPairFn.apply(wp, x1t, x2t, _check_seed(seed1),
+                                _check_seed(seed2), float(p))
 
 
 # -- bb_matmul: the original-layout pair (K6/K7), unmasked --------------------
@@ -443,6 +509,19 @@ def mm_bwd_masked_plain(wp: torch.Tensor, x: torch.Tensor, seed: int,
         r1 = min(r0 + _PLAIN_ROWS, wp.shape[0])
         y += _masked_rows(wp, seed, p, r0, r1).T @ xb[r0:r1]
     return y
+
+
+def t1_masked_plain(wp: torch.Tensor, x1t: torch.Tensor, seed: int,
+                    p: float) -> torch.Tensor:
+    """y1t (d, m) = ((B * M) @ X1)^T, row-blocked as ``mm_fwd_masked_plain``:
+    the keep mask is never unpacked whole."""
+    return mm_fwd_masked_plain(wp, x1t.T, seed, p).T
+
+
+def t2_masked_plain(wp: torch.Tensor, x2t: torch.Tensor, seed: int,
+                    p: float) -> torch.Tensor:
+    """y2t (d, K) = ((B * M)^T @ X2)^T, row-blocked."""
+    return mm_bwd_masked_plain(wp, x2t.T, seed, p).T
 
 
 def mm_fwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,

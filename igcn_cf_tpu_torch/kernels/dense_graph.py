@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.kernels.bitpack import (
     TK,
     TKP,
@@ -77,10 +78,11 @@ class BipartiteDense:
 
     @staticmethod
     def build(train_array: np.ndarray, n_users: int, n_items: int,
-              device="cpu") -> "BipartiteDense":
+              device="cuda") -> "BipartiteDense":
         """Pack on ``device``: only the deduplicated (row, word, bit) index
         arrays cross to it, not the packed matrix. Pairs are deduplicated on
         the host because the scatter adds powers of two."""
+        device = _build.require_device(device)
         train_array = np.asarray(train_array)
         mp, kp = pad_to(n_users, TM), pad_to(n_items, TK)
         uniq = np.unique(
@@ -287,11 +289,12 @@ def dense_fits(n_users: int, n_items: int, budget: int) -> bool:
 
 
 def choose_backend(n_users: int, n_items: int, requested: str = "auto",
-                   device="cpu") -> str:
+                   device="cuda") -> str:
     """'dense' (the bit-packed engine) whenever the packed matrix fits the
     device's budget; 'dense_lean' is accepted as the JAX package's round-1
     alias of 'dense'. The sparse COO backend is not ported: asking for it,
     or a catalog too large for dense, raises."""
+    device = _build.require_device(device)
     if requested == "dense_lean":
         return "dense"
     if requested not in ("auto", "dense", "sparse"):

@@ -88,7 +88,7 @@ def pcache_fits(n_users: int, n_items: int, budget: int) -> bool:
 
 
 def use_pcache(n_users: int, n_items: int, n_layers: int, requested="auto",
-               device="cpu") -> bool:
+               device="cuda") -> bool:
     """Static (capacity) gate for training through the cache. 'auto' means
     a CUDA device with P in budget (the model init then confirms with the
     measured A/B); on the CPU it means False, as off-TPU in the JAX

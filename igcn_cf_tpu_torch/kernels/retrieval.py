@@ -64,11 +64,12 @@ def pack_exclusion_words(exclude_lists, n_users: int, n_items: int,
 
 def pack_exclusion_words_device(user_ids, item_ids, n_users: int,
                                 n_items_pad: int, li: int = None,
-                                device="cpu") -> torch.Tensor:
+                                device="cuda") -> torch.Tensor:
     """The same layout as ``pack_exclusion_words``, scattered on ``device``
     from (user, item) id arrays. Pairs may repeat (train+val+test unions):
     they are deduplicated on the host first, since the scatter adds powers
     of two. Ids out of range are refused."""
+    device = _build.require_device(device)
     li = li or LI
     lw = li // 32
     if n_items_pad % li:

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from igcn_cf_tpu_torch.convert import load_jax_checkpoint, params_to_jax
+from igcn_cf_tpu_torch.kernels import _build
 
 Params = Dict[str, torch.Tensor]
 Buffers = Dict[str, object]
@@ -79,14 +80,14 @@ class Model(nn.Module):
 
     trainable: bool = True
 
-    def __init__(self, config: dict, dataset, device="cpu"):
+    def __init__(self, config: dict, dataset, device="cuda"):
         super().__init__()
         self.config = dict(config)
         self.name = config["name"]
         self.dataset = dataset
         self.n_users = dataset.n_users
         self.n_items = dataset.n_items
-        self.device = torch.device(device)
+        self.device = _build.require_device(device)
 
     # -- device state -------------------------------------------------------
 
@@ -172,7 +173,10 @@ class Model(nn.Module):
         return params
 
 
-def get_model(config: dict, dataset, device="cpu") -> Model:
+def get_model(config: dict, dataset, device="cuda") -> Model:
+    """The registered model of ``config["name"]`` on ``device``: the card
+    by default (raises where there is none); ``device="cpu"`` runs the
+    plain versions."""
     from igcn_cf_tpu_torch.core.registry import MODELS
 
     cls = MODELS.get(config["name"])

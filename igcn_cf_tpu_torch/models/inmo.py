@@ -45,7 +45,7 @@ from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 class IGCN(Model):
     supports_pcache = True  # the propagation operator is fixed in training
 
-    def __init__(self, config, dataset, device="cpu"):
+    def __init__(self, config, dataset, device="cuda"):
         super().__init__(config, dataset, device)
         self.embedding_size = config["embedding_size"]
         self.n_layers = config["n_layers"]

@@ -29,7 +29,7 @@ from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 @MODELS.register("LightGCN")
 class LightGCN(Model):
-    def __init__(self, config, dataset, device="cpu"):
+    def __init__(self, config, dataset, device="cuda"):
         super().__init__(config, dataset, device)
         self.embedding_size = config["embedding_size"]
         self.n_layers = config["n_layers"]

@@ -47,7 +47,7 @@ class NGCFDrop(NamedTuple):
 
 @MODELS.register("NGCF")
 class NGCF(Model):
-    def __init__(self, config, dataset, device="cpu"):
+    def __init__(self, config, dataset, device="cuda"):
         super().__init__(config, dataset, device)
         self.embedding_size = config["embedding_size"]
         self.layer_sizes = list(config["layer_sizes"])

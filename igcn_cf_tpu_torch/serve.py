@@ -56,7 +56,7 @@ class Recommender:
 
     @classmethod
     def from_checkpoint(cls, path: str, model_config: dict, dataset, *,
-                        exclude: str = "train", device="cpu"):
+                        exclude: str = "train", device="cuda"):
         """Load a checkpoint over the CURRENT dataset: template maps come from
         the checkpoint, graph structures from the dataset, so users and items
         unseen at training time are served at once."""

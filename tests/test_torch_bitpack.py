@@ -61,7 +61,7 @@ def test_high_bit_words_survive_int32(rng):
     arr = np.stack([np.zeros(2, np.int64), cols], 1)
     got, _, _ = bitpack.pack_interactions(arr, 1, 8192)
     assert got[0, 5] < 0 and _u32(got)[0, 5] == 2**31
-    g = dense_graph.BipartiteDense.build(arr, 1, 8192)
+    g = dense_graph.BipartiteDense.build(arr, 1, 8192, device="cpu")
     np.testing.assert_array_equal(g.B.numpy(), got)
 
 
@@ -69,7 +69,7 @@ def test_high_bit_words_survive_int32(rng):
                                                  (5, 3, 0)])
 def test_bipartite_build_identical_to_jax(rng, n_users, n_items, nnz):
     arr = _pairs(rng, n_users, n_items, nnz)
-    got = dense_graph.BipartiteDense.build(arr, n_users, n_items)
+    got = dense_graph.BipartiteDense.build(arr, n_users, n_items, device="cpu")
     want = jdg.BipartiteDense.build(arr, n_users, n_items)
     np.testing.assert_array_equal(_u32(got.B), np.asarray(want.B))
     np.testing.assert_array_equal(got.deg_u.numpy(), np.asarray(want.deg_u))
@@ -157,7 +157,7 @@ def test_library_path_is_keyed_on_sources():
 
 def _graphs(ds):
     arr, n_u, n_i = ds.train_array, ds.n_users, ds.n_items
-    return (dense_graph.BipartiteDense.build(arr, n_u, n_i),
+    return (dense_graph.BipartiteDense.build(arr, n_u, n_i, device="cpu"),
             jdg.BipartiteDense.build(arr, n_u, n_i))
 
 
@@ -198,15 +198,15 @@ def test_sym_norm_propagate_mean_matches_jax(small_ds, rng, n_layers):
 
 
 def test_choose_backend():
-    assert dense_graph.choose_backend(60, 80) == "dense"
-    assert dense_graph.choose_backend(60, 80, "dense") == "dense"
-    assert dense_graph.choose_backend(10**6, 10**6, "dense") == "dense"
+    assert dense_graph.choose_backend(60, 80, device="cpu") == "dense"
+    assert dense_graph.choose_backend(60, 80, "dense", device="cpu") == "dense"
+    assert dense_graph.choose_backend(10**6, 10**6, "dense", device="cpu") == "dense"
     with pytest.raises(NotImplementedError, match="sparse"):
-        dense_graph.choose_backend(60, 80, "sparse")
+        dense_graph.choose_backend(60, 80, "sparse", device="cpu")
     with pytest.raises(NotImplementedError, match="sparse"):
-        dense_graph.choose_backend(10**6, 10**6)  # too large for the budget
+        dense_graph.choose_backend(10**6, 10**6, device="cpu")  # too large for the budget
     # the JAX package's round-1 alias (dense_graph.py:327-328)
-    assert dense_graph.choose_backend(60, 80, "dense_lean") == "dense"
+    assert dense_graph.choose_backend(60, 80, "dense_lean", device="cpu") == "dense"
     with pytest.raises(ValueError):
-        dense_graph.choose_backend(60, 80, "dense_fast")
+        dense_graph.choose_backend(60, 80, "dense_fast", device="cpu")
     assert dense_graph.dense_budget_bytes("cpu") == dense_graph.CPU_DENSE_BUDGET_BYTES

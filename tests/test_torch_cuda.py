@@ -343,3 +343,107 @@ def test_masked_wrappers_refuse_bad_operands(cuda):
         bitpack.mm_bwd_masked(wp, torch.zeros(4096, 8, device=cuda), 1, 0.1)
     with pytest.raises(ValueError):
         bitpack.mm_fwd_masked(wp, torch.zeros(4096, 8, device=cuda), 2**32, 0.1)
+
+
+@pytest.mark.parametrize("n_users,n_items,nnz,d,seed,p", [
+    (300, 400, 12000, 64, 7, 0.3),            # IGCN's width and dropout
+    (1100, 9000, 30000, 16, 2**32 - 1, 0.1),  # several tiles, top seed
+    (600, 5000, 20000, 100, 12345, 0.5),      # d not a multiple of 32
+])
+def test_masked_pair_kernels_match_plain_and_premasked(
+        cuda, n_users, n_items, nnz, d, seed, p):
+    """K1m/K2m against their plain versions, and bit-equal to K1/K2 over
+    mask_words' premasked B."""
+    rng = np.random.default_rng(n_users + d)
+    g = _graph(rng, n_users, n_items, nnz, cuda)
+    m, kw = g.B.shape
+    x1t = torch.randn(d, kw * 32, device=cuda)
+    x2t = torch.randn(d, m, device=cuda)
+    before = dict(_build.LAUNCHES)
+    got1 = bitpack.t1_masked(g.B, x1t, seed, p)
+    got2 = bitpack.t2_masked(g.B, x2t, seed, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K1m"] == before["K1m"] + 1
+    assert _build.LAUNCHES["K2m"] == before["K2m"] + 1
+    assert got1.shape == (d, m) and got2.shape == (d, kw * 32)
+    torch.testing.assert_close(got1, bitpack.t1_masked_plain(g.B, x1t, seed, p),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got2, bitpack.t2_masked_plain(g.B, x2t, seed, p),
+                               rtol=1e-5, atol=1e-4)
+    premasked = bitpack.mask_words(g.B, seed, p)
+    assert torch.equal(got1, bitpack.t1(premasked, x1t))
+    assert torch.equal(got2, bitpack.t2(premasked, x2t))
+
+
+def test_bbt_pair_dropped_grad_matches_plain(cuda):
+    """The backward swaps directions and keeps each direction's seed."""
+    rng = np.random.default_rng(4)
+    g = _graph(rng, 700, 5000, 20000, cuda)
+    m, kw = g.B.shape
+    s1, s2, p = 2**32 - 3, 91, 0.3
+    x1t = torch.randn(64, kw * 32, device=cuda, requires_grad=True)
+    x2t = torch.randn(64, m, device=cuda, requires_grad=True)
+    c1, c2 = torch.randn(64, m, device=cuda), torch.randn(64, kw * 32, device=cuda)
+    y1t, y2t = bitpack.bbt_pair_dropped(g.B, x1t, x2t, s1, s2, p)
+    torch.autograd.backward((y1t, y2t), (c1, c2))
+    torch.testing.assert_close(x1t.grad, bitpack.t2_masked_plain(g.B, c1, s1, p),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(x2t.grad, bitpack.t1_masked_plain(g.B, c2, s2, p),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,npad,nj,r,d,tr,dup", [
+    (712, 1024, 2, 256, 64, 64, False),   # the tool's correctness shape
+    (700, 2048, 4, 300, 40, 128, True),   # ragged R, d padded, duplicates
+    (3000, 4096, 2, 520, 128, 256, True),  # two feature tiles, largest TR
+    (500, 1024, 1, 100, 64, 16, False),   # one slab, smallest TR
+])
+def test_fused_4d_kernels_match_plain_and_k3_k4(cuda, n, npad, nj, r, d, tr,
+                                                dup):
+    """T1/T2 against their plain versions and against K3/K4 on the same
+    row-major P."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    gen = torch.Generator(device=cuda).manual_seed(n + r)
+    p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=gen, device=cuda)
+    if dup:
+        rows[r // 2:] = rows[: r - r // 2]
+    x0 = torch.randn((npad, d), generator=gen, device=cuda)
+    ct = torch.randn((r, d), generator=gen, device=cuda)
+    p4 = mpc.to4d(p, nj)
+    before = dict(_build.LAUNCHES)
+    got_f = mpc.fused_fwd_4d(p4, rows, x0, tr)
+    got_b = mpc.fused_bwd_4d(p4, rows, ct, tr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["T1"] == before["T1"] + 1
+    assert _build.LAUNCHES["T2"] == before["T2"] + 1
+    assert got_f.shape == (r, d) and got_b.shape == (npad, d)
+    torch.testing.assert_close(got_f, mpc.fused_fwd_4d_plain(p4, rows, x0),
+                               **GATHER_TOL)
+    torch.testing.assert_close(got_b, mpc.fused_bwd_4d_plain(p4, rows, ct),
+                               **GATHER_TOL)
+    torch.testing.assert_close(got_f, pcache.gather_fwd(p, rows, x0.to(torch.bfloat16)),
+                               **GATHER_TOL)
+    torch.testing.assert_close(got_b, pcache.gather_bwd(p, rows, ct.to(torch.bfloat16)),
+                               **GATHER_TOL)
+    assert torch.equal(got_b, mpc.fused_bwd_4d(p4, rows, ct, tr))  # one writer
+
+
+def test_fused_4d_wrappers_refuse_bad_operands(cuda):
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    p4 = torch.zeros((100, 2, 4, 128), dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(10, dtype=torch.int64, device=cuda)
+    x0 = torch.zeros((1024, 64), device=cuda)
+    with pytest.raises(ValueError):
+        mpc.fused_fwd_4d(p4.float(), rows, x0)
+    with pytest.raises(ValueError):
+        mpc.fused_fwd_4d(p4, rows, x0[:1000])  # npad
+    with pytest.raises(ValueError):
+        mpc.fused_fwd_4d(p4, rows, x0, tr=24)  # TR not a multiple of 16
+    with pytest.raises(ValueError):
+        mpc.fused_bwd_4d(p4, rows, torch.zeros((9, 64), device=cuda))
+    with pytest.raises(ValueError):
+        bitpack.t1_masked(torch.zeros((512, 128), dtype=torch.int32, device=cuda),
+                          torch.zeros(8, 100, device=cuda), 1, 0.3)

@@ -177,7 +177,7 @@ def test_masked_wrappers_refuse_bad_seeds():
 
 def _graphs(ds):
     arr, n_u, n_i = ds.train_array, ds.n_users, ds.n_items
-    return (dense_graph.BipartiteDense.build(arr, n_u, n_i),
+    return (dense_graph.BipartiteDense.build(arr, n_u, n_i, device="cpu"),
             jdg.BipartiteDense.build(arr, n_u, n_i))
 
 
@@ -203,7 +203,7 @@ def test_ngcf_propagate_and_grad_match_jax(small_ds, rng, dropout):
 def _ngcf_models(jds, pds, cfg=NGCF_CFG):
     jm = jax_get_model(dict(cfg), jds)
     jparams = jm.init_params(jax.random.PRNGKey(4))
-    pm = get_model(dict(cfg), pds)
+    pm = get_model(dict(cfg), pds, device="cpu")
     return jm, jparams, pm, params_from_jax(jparams, "cpu")
 
 
@@ -222,7 +222,7 @@ def test_ngcf_rep_matches_jax(tiny_ds, port_tiny, train):
 def test_ngcf_params_shapes_and_init(tiny_ds, port_tiny):
     """The tree of JAX's NGCF.init_params, drawn from the port's own
     generator with the same bounds."""
-    params = get_model(NGCF_CFG, port_tiny).init_params(
+    params = get_model(NGCF_CFG, port_tiny, device="cpu").init_params(
         torch.Generator().manual_seed(0))
     want = jax_get_model(dict(NGCF_CFG), tiny_ds).init_params(jax.random.PRNGKey(0))
     shapes = {k: tuple(v.shape) for k, v in flatten_tree(params).items()}
@@ -239,14 +239,14 @@ def test_ngcf_params_shapes_and_init(tiny_ds, port_tiny):
 def test_ngcf_draw_drop_shapes(port_tiny):
     from igcn_cf_tpu_torch.core.prng import KeySeq
 
-    model = get_model(NGCF_CFG, port_tiny)
+    model = get_model(NGCF_CFG, port_tiny, device="cpu")
     drop = model.draw_drop(KeySeq(1), torch.Generator().manual_seed(1))
     n = port_tiny.n_users + port_tiny.n_items
     assert drop.edge.keep_u.shape == (port_tiny.n_users,)
     assert drop.edge.keep_i.shape == (port_tiny.n_items,)
     assert [tuple(f.shape) for f in drop.feat] == [(n, 16), (n, 8)]
     assert drop.edge.seed_b != drop.edge.seed_bt
-    assert get_model(dict(NGCF_CFG, dropout=0.0), port_tiny).draw_drop(
+    assert get_model(dict(NGCF_CFG, dropout=0.0), port_tiny, device="cpu").draw_drop(
         KeySeq(1), torch.Generator()) is None
 
 
@@ -256,7 +256,7 @@ def test_ngcf_draw_drop_shapes(port_tiny):
 def _trainers(jds, pds, model_cfg, trainer_cfg=TRAINER_CFG):
     jm = jax_get_model(dict(model_cfg), jds)
     jt = jax_get_trainer(dict(trainer_cfg), jds, jm)
-    pm = get_model(dict(model_cfg), pds)
+    pm = get_model(dict(model_cfg), pds, device="cpu")
     pt = get_trainer(dict(trainer_cfg), pds, pm)
     copy_params_(pt.params, jt.params)
     return jt, pt
@@ -307,7 +307,7 @@ def test_ngcf_trainer_epoch_and_launch_free_cpu(port_tiny):
     """A CPU epoch runs on the plain versions only: no kernel is counted."""
     from igcn_cf_tpu_torch.kernels import _build
 
-    model = get_model(NGCF_CFG, port_tiny)
+    model = get_model(NGCF_CFG, port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG, batch_size=256), port_tiny, model)
     before = {k: v.detach().clone() for k, v in trainer.flat_params.items()}
     _build.reset_launches()
@@ -329,7 +329,7 @@ def test_trainer_eval_matches_jax(tiny_ds, port_tiny, model_cfg):
 
 
 def test_lightgcn_rebuild_drops_the_cache(port_tiny):
-    model = get_model(dict(LGCN_CFG, prop_cache=True), port_tiny)
+    model = get_model(dict(LGCN_CFG, prop_cache=True), port_tiny, device="cpu")
     assert "pcache" in model.init_buffers()
     buffers = model.rebuild_for(port_tiny)
     assert not model.pcache and "pcache" not in buffers and "bip" in buffers
@@ -360,7 +360,7 @@ def test_jax_ngcf_checkpoint_loads_in_the_port(tiny_ds, port_tiny, tmp_path):
 def test_port_ngcf_best_checkpoint_loads_in_jax(tiny_ds, port_tiny, tmp_path,
                                                 monkeypatch):
     monkeypatch.chdir(tmp_path)
-    model = get_model(NGCF_CFG, port_tiny)
+    model = get_model(NGCF_CFG, port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG, lr=1e-2, batch_size=256),
                           port_tiny, model)
     best = trainer.train(verbose=False)
@@ -379,7 +379,7 @@ def test_port_ngcf_best_checkpoint_loads_in_jax(tiny_ds, port_tiny, tmp_path,
 def test_ngcf_state_and_adam_round_trip(port_tiny, tmp_path):
     """save_state/load_state and Adam's optax form keep the nested tree:
     a resumed trainer takes the same next step."""
-    model = get_model(NGCF_CFG, port_tiny)
+    model = get_model(NGCF_CFG, port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG), port_tiny, model)
     for _ in range(2):
         trainer.train_step(*trainer.sample_step())
@@ -391,7 +391,7 @@ def test_ngcf_state_and_adam_round_trip(port_tiny, tmp_path):
         for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(fresh.state[p][k], trainer.opt.state[p][k])
     path = trainer.save_state(str(tmp_path / "state.pkl"))
-    model2 = get_model(NGCF_CFG, port_tiny)
+    model2 = get_model(NGCF_CFG, port_tiny, device="cpu")
     trainer2 = get_trainer(dict(TRAINER_CFG, seed=5), port_tiny, model2)
     trainer2.load_state(path)
     a = trainer.train_step(*trainer.sample_step())

@@ -52,7 +52,9 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     "igcn_cf_tpu_torch.kernels.pcache",
                                     "igcn_cf_tpu_torch.evaluation.evaluate",
                                     "igcn_cf_tpu_torch.models.lightgcn",
-                                    "igcn_cf_tpu_torch.models.ngcf"])
+                                    "igcn_cf_tpu_torch.models.ngcf",
+                                    "igcn_cf_tpu_torch.tools.microbench_dual",
+                                    "igcn_cf_tpu_torch.tools.microbench_pcache"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))

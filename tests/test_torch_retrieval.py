@@ -50,7 +50,8 @@ def test_pack_exclusion_words_device_identical_to_jax(rng, n_users, n_items,
     lists = _lists(rng, n_users, n_items, dups=True)
     rows = np.concatenate([np.full(len(x), u) for u, x in enumerate(lists)])
     cols = np.concatenate([np.asarray(x, np.int64) for x in lists])
-    got = retrieval.pack_exclusion_words_device(rows, cols, n_users, nip, li=li)
+    got = retrieval.pack_exclusion_words_device(rows, cols, n_users, nip, li=li,
+                                                device="cpu")
     want = jret.pack_exclusion_words_device(rows.astype(np.int32),
                                             cols.astype(np.int32), n_users,
                                             nip, li=li)
@@ -65,11 +66,11 @@ def test_pack_exclusion_words_device_identical_to_jax(rng, n_users, n_items,
 
 def test_pack_exclusion_words_device_refuses_bad_ids():
     with pytest.raises(ValueError):
-        retrieval.pack_exclusion_words_device([0, 3], [1, 2], 3, 128, li=128)
+        retrieval.pack_exclusion_words_device([0, 3], [1, 2], 3, 128, li=128, device="cpu")
     with pytest.raises(ValueError):
-        retrieval.pack_exclusion_words_device([0], [128], 3, 128, li=128)
+        retrieval.pack_exclusion_words_device([0], [128], 3, 128, li=128, device="cpu")
     with pytest.raises(ValueError):
-        retrieval.pack_exclusion_words_device([0], [1], 3, 200, li=128)
+        retrieval.pack_exclusion_words_device([0], [1], 3, 200, li=128, device="cpu")
 
 
 def _case(rng, n_users, n_items, d, nup, nip, li, dyadic):

@@ -45,7 +45,7 @@ def _jax_model(ds, cfg=MODEL_CFG, seed=0):
 
 
 def _port_model(ds, jparams, cfg=MODEL_CFG):
-    model = get_model(dict(cfg), ds)
+    model = get_model(dict(cfg), ds, device="cpu")
     params = params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, "cpu")
     return model, params, model.init_buffers()
 
@@ -110,7 +110,8 @@ def test_jax_checkpoint_refreshed_onto_grown_catalog(tiny_ds, port_tiny, tmp_pat
     path = os.path.join(tmp_path, "jax_ckpt.pkl")
     jm.save(path, jp)
 
-    rec = Recommender.from_checkpoint(path, MODEL_CFG, dropui(port_tiny, 0.8))
+    rec = Recommender.from_checkpoint(path, MODEL_CFG, dropui(port_tiny, 0.8),
+                                      device="cpu")
     assert rec.model.n_users == j_reduced.n_users
     seconds = rec.refresh(port_tiny)
     assert seconds >= 0.0 and rec.model.n_users == tiny_ds.n_users
@@ -130,13 +131,13 @@ def test_jax_checkpoint_refreshed_onto_grown_catalog(tiny_ds, port_tiny, tmp_pat
 
 
 def test_port_checkpoint_loads_in_jax(tiny_ds, port_tiny, tmp_path):
-    pm = get_model(dict(MODEL_CFG), port_tiny)
+    pm = get_model(dict(MODEL_CFG), port_tiny, device="cpu")
     pp = pm.init_params(torch.Generator().manual_seed(5))
     path = os.path.join(tmp_path, "port_ckpt.pkl")
     pm.save(path, pp)
 
     jrec = JaxRecommender.from_checkpoint(path, MODEL_CFG, tiny_ds, bucket=False)
-    rec = Recommender.from_checkpoint(path, MODEL_CFG, port_tiny)
+    rec = Recommender.from_checkpoint(path, MODEL_CFG, port_tiny, device="cpu")
     for name, value in pp.items():
         np.testing.assert_array_equal(np.asarray(jrec.params[name]), value.numpy())
     want_rep = jrec.model.rep(jrec.params, jrec.buffers, train=False, key=None)
@@ -184,14 +185,14 @@ class _ExtraRowIGCN:
 
 
 def test_recommender_validates_rep_rows(port_tiny):
-    pm = get_model(dict(MODEL_CFG), port_tiny)
+    pm = get_model(dict(MODEL_CFG), port_tiny, device="cpu")
     pp, pb = pm.init_params(torch.Generator().manual_seed(0)), pm.init_buffers()
     with pytest.raises(ValueError, match="rows"):
         Recommender(_ExtraRowIGCN(pm), pp, pb)
 
 
 def test_recommend_refuses_bad_requests(port_tiny):
-    pm = get_model(dict(MODEL_CFG), port_tiny)
+    pm = get_model(dict(MODEL_CFG), port_tiny, device="cpu")
     pp, pb = pm.init_params(torch.Generator().manual_seed(0)), pm.init_buffers()
     rec = Recommender(pm, pp, pb)
     assert rec.recommend([], k=5).shape == (0, 5)
@@ -207,12 +208,12 @@ def test_training_paths_are_not_ported(port_tiny):
     """Training is ported now (tests/test_torch_train.py): the train rep
     carries gradients and the propagation cache builds. The sparse backend
     is still not ported, and serving never builds the cache."""
-    pm = get_model(dict(MODEL_CFG), port_tiny)
+    pm = get_model(dict(MODEL_CFG), port_tiny, device="cpu")
     pp, pb = pm.init_params(), pm.init_buffers()
     pp["embedding"].requires_grad_()
     assert pm.rep(pp, pb, train=True).requires_grad
     assert not pm.rep(pp, pb, train=False).requires_grad
-    cached = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    cached = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     assert cached.pcache and "pcache" in cached.init_buffers()
     with pytest.raises(NotImplementedError, match="sparse"):
-        get_model(dict(MODEL_CFG, graph_backend="sparse"), port_tiny)
+        get_model(dict(MODEL_CFG, graph_backend="sparse"), port_tiny, device="cpu")

@@ -69,7 +69,7 @@ def _t(x):
 def _trainers(jds, pds, prop_cache, model_cfg=MODEL_CFG, trainer_cfg=TRAINER_CFG):
     jm = jax_get_model(dict(model_cfg, prop_cache=prop_cache), jds)
     jt = jax_get_trainer(dict(trainer_cfg), jds, jm)
-    pm = get_model(dict(model_cfg, prop_cache=prop_cache), pds)
+    pm = get_model(dict(model_cfg, prop_cache=prop_cache), pds, device="cpu")
     pt = get_trainer(dict(trainer_cfg), pds, pm)
     assert pm.pcache is jm.pcache is bool(prop_cache)
     copy_params_(pt.params, jt.params)
@@ -173,7 +173,7 @@ def test_engines_agree_on_a_step(port_tiny):
     bf16-storage tolerance (P is bf16)."""
     steps = {}
     for prop_cache in (True, False):
-        model = get_model(dict(MODEL_CFG, prop_cache=prop_cache), port_tiny)
+        model = get_model(dict(MODEL_CFG, prop_cache=prop_cache), port_tiny, device="cpu")
         trainer = get_trainer(dict(TRAINER_CFG), port_tiny, model)
         inputs = trainer.sample_step()
         loss = trainer.loss(trainer.params, *inputs)
@@ -187,7 +187,7 @@ def test_engines_agree_on_a_step(port_tiny):
 
 
 def test_train_step_counts_and_epoch(port_tiny):
-    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG), port_tiny, model)
     assert trainer.steps_per_epoch() == -(-len(port_tiny) // 64)
     before = trainer.params["embedding"].detach().clone()
@@ -202,7 +202,7 @@ def test_train_step_counts_and_epoch(port_tiny):
 
 
 def test_sampler_structures_match_jax(tiny_ds, port_tiny):
-    got = DeviceNegativeSampler.build(port_tiny)
+    got = DeviceNegativeSampler.build(port_tiny, device="cpu")
     want = JaxSampler.build(tiny_ds)
     np.testing.assert_array_equal(got.active_users.numpy(), _np(want.active_users))
     np.testing.assert_array_equal(got.user_items.numpy(), _np(want.user_items))
@@ -215,9 +215,9 @@ def test_sampler_validity_and_marginals(port_tiny, dense):
     """The device stream differs from the oracle's; validity is exact and
     the marginals agree within sampling noise."""
     ds = port_tiny
-    sampler = DeviceNegativeSampler.build(ds)
+    sampler = DeviceNegativeSampler.build(ds, device="cpu")
     if dense:
-        model = get_model(dict(MODEL_CFG, prop_cache=False), ds)
+        model = get_model(dict(MODEL_CFG, prop_cache=False), ds, device="cpu")
         sampler = sampler.with_dense_b(model.init_buffers()["bip"].B)
     n = 40000
     users, pos, negs = sampler.sample(torch.Generator().manual_seed(3), n, 2)
@@ -279,7 +279,7 @@ def test_trainer_eval_matches_jax(tiny_ds, port_tiny):
 def test_train_writes_a_best_checkpoint_jax_reads(tiny_ds, port_tiny, tmp_path,
                                                   monkeypatch):
     monkeypatch.chdir(tmp_path)
-    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG, lr=1e-2), port_tiny, model)
     best = trainer.train(verbose=False)
     assert len(trainer.history) == 2 and best == max(r["ndcg"] for r in trainer.history)
@@ -317,7 +317,7 @@ def test_pcache_reuse_needs_the_same_graph(port_tiny):
     """refresh_buffers reuses P for the same graph only: a different graph
     with the same shape and edge count gets its own P (the JAX package
     compares only shape and count, ROADMAP fault 3.3)."""
-    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     buffers = model.init_buffers()
     same = model.refresh_buffers(buffers)
     assert same["pcache"] is buffers["pcache"]
@@ -335,11 +335,11 @@ def test_pcache_reuse_needs_the_same_graph(port_tiny):
 
 def test_save_and_load_state_resume(port_tiny, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    model = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG), port_tiny, model)
     trainer.train_one_epoch()
     path = trainer.save_state(str(tmp_path / "state.pkl"))
-    model2 = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny)
+    model2 = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     trainer2 = get_trainer(dict(TRAINER_CFG, seed=5), port_tiny, model2)
     trainer2.load_state(path)
     assert trainer2.start_epoch == 1 and model2.alpha == model.alpha
@@ -356,7 +356,7 @@ def test_save_and_load_state_resume(port_tiny, tmp_path, monkeypatch):
 
 
 def test_adam_state_round_trip(port_tiny):
-    model = get_model(dict(MODEL_CFG, prop_cache=False), port_tiny)
+    model = get_model(dict(MODEL_CFG, prop_cache=False), port_tiny, device="cpu")
     trainer = get_trainer(dict(TRAINER_CFG), port_tiny, model)
     for _ in range(2):
         trainer.train_step(*trainer.sample_step())
@@ -413,7 +413,7 @@ def test_optax_state_after_three_steps_continues_in_the_port(rng):
 @pytest.mark.parametrize("ratio", [1.0, 0.7])
 def test_auxiliary_interactions_match_jax(tiny_ds, port_tiny, ratio):
     model = get_model(dict(MODEL_CFG, feature_ratio=ratio, prop_cache=False),
-                      port_tiny)
+                      port_tiny, device="cpu")
     got = auxiliary_interactions(port_tiny, model.user_map, model.item_map)
     want = jax_aux(tiny_ds, model.user_map, model.item_map)
     assert (got.name, got.n_users, got.n_items) == (want.name, want.n_users, want.n_items)

@@ -189,7 +189,7 @@ def test_bbt_pair_grads_match_jax_vjp(rng):
 
 def _graphs(ds):
     arr, n_u, n_i = ds.train_array, ds.n_users, ds.n_items
-    return (dense_graph.BipartiteDense.build(arr, n_u, n_i),
+    return (dense_graph.BipartiteDense.build(arr, n_u, n_i, device="cpu"),
             jdg.BipartiteDense.build(arr, n_u, n_i))
 
 
@@ -240,7 +240,7 @@ def test_feat_aggregate_with_dropout_matches_jax(tiny_ds, rng, key_seed):
 
 def test_choose_backend_dense_lean_in_both_packages():
     for n_u, n_i in ((60, 80), (5000, 9000)):
-        assert dense_graph.choose_backend(n_u, n_i, "dense_lean") == \
+        assert dense_graph.choose_backend(n_u, n_i, "dense_lean", device="cpu") == \
             jdg.choose_backend(n_u, n_i, "dense_lean") == "dense"
 
 
@@ -330,12 +330,12 @@ def test_cached_prop_and_grad_match_jax(tiny_ds, rng):
 
 
 def test_pcache_gating(monkeypatch):
-    assert not pcache.use_pcache(100, 100, 3, "auto")  # auto on the CPU: off
-    assert pcache.use_pcache(100, 100, 3, True)
-    assert not pcache.use_pcache(100, 100, 0, True)
-    assert not pcache.use_pcache(100, 100, 3, False)
+    assert not pcache.use_pcache(100, 100, 3, "auto", device="cpu")  # auto on the CPU: off
+    assert pcache.use_pcache(100, 100, 3, True, device="cpu")
+    assert not pcache.use_pcache(100, 100, 0, True, device="cpu")
+    assert not pcache.use_pcache(100, 100, 3, False, device="cpu")
     with pytest.raises(ValueError):
-        pcache.use_pcache(100, 100, 3, "always")
+        pcache.use_pcache(100, 100, 3, "always", device="cpu")
     # the slice: n = 70,839, npad = 70,912, 10.05 GB of bf16
     assert pcache.pcache_bytes(29858, 40981) == 70839 * 70912 * 2
     assert pcache.pcache_fits(29858, 40981, 80 * 10**9 - pcache.PCACHE_RESERVE_BYTES)
