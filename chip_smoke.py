@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's IGCN serving and training paths, LightGCN and
-NGCF training, and the two kernel-microbenchmark tools, once on one NVIDIA
+NGCF training, and the four kernel-microbenchmark tools, once on one NVIDIA
 H100.
 
 Run from the root of a checkout, with no arguments:
@@ -60,10 +60,16 @@ Phases, each fatal on failure:
      feature aggregation (old-path, bbt-drop, premask) on the full B with
      the same draws, outputs and gradients; T1/T2 (the 4-D fused gather
      kernels) on the tool's full-shape random P against their plain
-     versions and against K3/K4 on the same P. Then both tools' ``main()``
-     (``igcn_cf_tpu_torch.tools.microbench_dual`` and ``microbench_pcache``)
-     print their rows, with the counts set to 0 just before: K1m, K2m, T1
-     and T2 must launch there, and on no earlier path.
+     versions and against K3/K4 on the same P; on that P too, T3 (the tune
+     tool's forward, X0 per stage and X0 kept in L2) against its plain
+     version and bit-equal to T1, and T4 (its backward, written as dX0^T)
+     against its plain version and T2 transposed, deterministic; T5 (the
+     gather probe) bit-equal to its plain version at each of the gather
+     tool's cases. With that P freed, the four tools' ``main()``
+     (``igcn_cf_tpu_torch.tools.microbench_dual``, ``microbench_pcache``,
+     ``microbench_pcache_tune`` and ``microbench_gather``) print their
+     rows, with the counts set to 0 just before: K1m, K2m and T1-T5 must
+     launch there, and on no earlier path.
   9. output  -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
@@ -157,14 +163,23 @@ KERNELS = {
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:91"),
     "T2": ("fused_bwd_4d: P4[rows]^T @ ct, one block per 128 columns",
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:178"),
+    "T3": ("fwd_tune: P4[rows] @ X0, X0 kept in L2 (resident_x0)",
+           "igcn_cf_tpu_torch/csrc/pcache_4d.cu",
+           "tools/microbench_pcache_tune.py:74"),
+    "T4": ("bwd_t: ct^T @ P4[rows], the (d, npad) transpose of T2",
+           "igcn_cf_tpu_torch/csrc/pcache_4d.cu",
+           "tools/microbench_pcache_tune.py:160"),
+    "T5": ("gather_chain: reps row gathers from a shared-memory stripe",
+           "igcn_cf_tpu_torch/csrc/gather_probe.cu",
+           "tools/microbench_gather.py:42"),
 }
 SERVE_KERNELS = ("K1", "K2", "K5")
 TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 GCN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
 TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K1m",
-                "K2m", "T1", "T2")
-# launched by the two microbenchmark tools and nowhere else
-TOOL_ONLY = ("K1m", "K2m", "T1", "T2")
+                "K2m", "T1", "T2", "T3", "T4", "T5")
+# launched by the microbenchmark tools and nowhere else
+TOOL_ONLY = ("K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
 
 
 def log(msg: str) -> None:
@@ -1070,16 +1085,17 @@ def check_dropped_pair(rng, full):
     return out
 
 
-def check_fused_4d():
-    """T1/T2 on the tool's full-shape random P against their plain versions
-    and against K3/K4 on the same (row-major) P; T2 deterministic."""
+def check_fused_4d(inputs):
+    """T1/T2 on the tool's full-shape random P (``inputs``, from
+    ``microbench_pcache.random_inputs``) against their plain versions and
+    against K3/K4 on the same (row-major) P; T2 deterministic."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import pcache
     from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
     from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
-    p, rows, x0, ct = mpc.random_inputs("cuda")
+    p, rows, x0, ct = inputs
     p4 = mpc.to4d(p, mpc.NJ)
     r, npad, d = rows.shape[0], p.shape[1], x0.shape[1]
     out = {}
@@ -1114,22 +1130,130 @@ def check_fused_4d():
     return out
 
 
+def check_tune(inputs):
+    """T3 in both variants and T4 on the tool's full-shape random P, at the
+    pcache tool's TR and NJ: T3 against its plain version and bit-equal to
+    T1 (the two variants differ only in L2 policy), T4 against its plain
+    version and T2 transposed, deterministic."""
+    import torch
+
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    p, rows, x0, ct = inputs
+    p4, tr = mpc.to4d(p, mpc.NJ), mpc.TR
+    r, npad, d = rows.shape[0], p.shape[1], x0.shape[1]
+    x0b, ctb = x0.to(torch.bfloat16), ct.to(torch.bfloat16)
+    fwd = {res: mpt.fwd_tune(p4, rows, x0b, tr, res) for res in (False, True)}
+    t1 = mpc.fused_fwd_4d(p4, rows, x0b, tr)
+    want = mpt.fwd_tune_plain(p4, rows, x0b)
+    sync()
+    for res, got in fwd.items():
+        if not torch.equal(got, t1):
+            raise AssertionError(f"T3 resident_x0={res} differs from T1")
+    err = assert_close_scaled(fwd[True], want)
+    ms = {res: cuda_ms(lambda: mpt.fwd_tune(p4, rows, x0b, tr, res))
+          for res in (False, True)}
+    t1_ms = cuda_ms(lambda: mpc.fused_fwd_4d(p4, rows, x0b, tr))
+    out = {"T3": {"max_abs_err": err, "ms": ms[True],
+                  "plain_ms": cuda_ms(lambda: mpt.fwd_tune_plain(p4, rows, x0b),
+                                      reps=5),
+                  "library_ms": gather_library_ms(p, rows, x0b, False),
+                  **gather_bound(r, npad, d, x0b.numel() * 2, want.numel() * 4)}}
+    log(f"# T3 on the tool's P {tuple(p4.shape)} (R={r}, TR={tr}, NJ={mpc.NJ}): "
+        f"both variants bit-equal to T1, max_abs_err {err:.3g} (outputs up to "
+        f"{float(want.abs().max()):.4g}); resident_x0 {ms[True]:.4f} ms, per "
+        f"stage {ms[False]:.4f} ms, T1 {t1_ms:.4f} ms; plain "
+        f"{out['T3']['plain_ms']:.4f} ms, index_select + bf16 matmul "
+        f"{out['T3']['library_ms']:.4f} ms, bound {out['T3']['bound_ms']:.4f} ms "
+        f"({out['T3']['bound_by']})")
+    del fwd, t1, want
+
+    got = mpt.bwd_t(p4, rows, ctb, tr)
+    want = mpt.bwd_t_plain(p4, rows, ctb)
+    t2 = mpc.fused_bwd_4d(p4, rows, ctb, tr)
+    sync()
+    err = assert_close_scaled(got, want)
+    diff = assert_close_scaled(got, t2.T)
+    if not torch.equal(got, mpt.bwd_t(p4, rows, ctb, tr)):
+        raise AssertionError("T4 is not deterministic")
+    t2_ms = cuda_ms(lambda: mpc.fused_bwd_4d(p4, rows, ctb, tr))
+    out["T4"] = {"max_abs_err": err,
+                 "ms": cuda_ms(lambda: mpt.bwd_t(p4, rows, ctb, tr)),
+                 "plain_ms": cuda_ms(lambda: mpt.bwd_t_plain(p4, rows, ctb),
+                                     reps=5),
+                 "library_ms": cuda_ms(lambda: ctb.T @ p.index_select(0, rows)),
+                 **gather_bound(r, npad, d, ctb.numel() * 2, got.numel() * 4)}
+    log(f"# T4 on the same P: max_abs_err {err:.3g} (outputs up to "
+        f"{float(want.abs().max()):.4g}), max diff to T2^T {diff:.3g}, "
+        f"deterministic; {out['T4']['ms']:.4f} ms vs T2 {t2_ms:.4f} ms, plain "
+        f"{out['T4']['plain_ms']:.4f} ms, ct^T @ index_select "
+        f"{out['T4']['library_ms']:.4f} ms, bound {out['T4']['bound_ms']:.4f} ms "
+        f"({out['T4']['bound_by']})")
+    return out
+
+
+def check_gather_probe():
+    """T5 at each of the gather tool's cases, bit-equal to its plain
+    version; the largest case timed (calls queued back to back) with its
+    bound and the library yardstick: one torch.gather over the (reps, N,
+    128) index, then a sum over reps."""
+    import torch
+
+    from igcn_cf_tpu_torch.tools import microbench_gather as mg
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms, queued_cuda_ms
+
+    reps, cases = mg.REPS, {}
+    for n, dtype in mg.CASES:
+        idx, x = mg.gather_inputs(n, dtype, "cuda")
+        got = mg.gather_chain(idx, x, reps)
+        sync()
+        if not torch.equal(got, mg.gather_chain_plain(idx, x, reps)):
+            raise AssertionError(f"T5 N={n} {dtype} differs from its plain version")
+        ms = queued_cuda_ms(lambda: mg.gather_chain(idx, x, reps))
+        # events around each call also time its launch from the host
+        events_ms = cuda_ms(lambda: mg.gather_chain(idx, x, reps))
+        log(f"# T5 N={n} {dtype} reps={reps} (stripe {mg.stripe_width(n, dtype)} "
+            f"columns): bit-equal to its plain version, {ms * 1e3:.3f} us a call "
+            f"queued ({events_ms * 1e3:.3f} us by events around each call)")
+        cases[n, dtype] = idx, x, ms
+    # the row of the kernels line: the largest case, N = 8,192 in f32
+    n, dtype = max(cases, key=lambda case: case[0])
+    idx, x, ms = cases[n, dtype]
+    all_idx = torch.stack([torch.remainder(idx.long() + i, n) for i in range(reps)])
+    xs = x.unsqueeze(0).expand(reps, -1, -1)
+    out = {"T5": {"max_abs_err": 0.0, "ms": ms,
+                  "plain_ms": cuda_ms(lambda: mg.gather_chain_plain(idx, x, reps),
+                                      reps=5),
+                  "library_ms": cuda_ms(lambda: torch.gather(xs, 1, all_idx).sum(0)),
+                  # x, idx and out cross device memory once; reps adds per output
+                  **bound(2 * x.numel() * x.element_size() + idx.numel() * 4,
+                          reps * x.numel(), "fp32")}}
+    log(f"# T5 row: N={n} {dtype}, {out['T5']['ms']:.5f} ms vs plain "
+        f"{out['T5']['plain_ms']:.4f} ms, gather + sum {out['T5']['library_ms']:.4f} "
+        f"ms, bound {out['T5']['bound_ms']:.5f} ms ({out['T5']['bound_by']})")
+    return out
+
+
 def phase_tools():
-    """Both tools' ``main()`` once, their rows printed, with the counts set
-    to 0 just before and read just after: the slice's main path. Returns
-    its launch counts."""
+    """The four tools' ``main()`` once, their rows printed, with the counts
+    set to 0 just before and read just after: the slice's main path.
+    Returns its launch counts."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import _build
-    from igcn_cf_tpu_torch.tools import microbench_dual, microbench_pcache
+    from igcn_cf_tpu_torch.tools import (microbench_dual, microbench_gather,
+                                         microbench_pcache, microbench_pcache_tune)
 
     torch.cuda.empty_cache()
     _build.reset_launches()
     microbench_dual.main([])
-    torch.cuda.empty_cache()
-    microbench_pcache.main()
+    for tool in (microbench_pcache, microbench_pcache_tune, microbench_gather):
+        torch.cuda.empty_cache()
+        tool.main()
     launches = dict(_build.LAUNCHES)
-    log(f"# launches during the two microbenchmark tools: {launches}")
+    log(f"# launches during the four microbenchmark tools: {launches}")
     check_launches(launches, TOOL_KERNELS, "microbenchmark")
     return launches
 
@@ -1160,7 +1284,14 @@ def main() -> int:
         raise AssertionError(f"the tools' kernels launched on an earlier path: "
                              f"{stray}")
     kern.update(check_dropped_pair(np.random.default_rng(1), full))
-    kern.update(check_fused_4d())
+    from igcn_cf_tpu_torch.tools import microbench_pcache
+
+    inputs = microbench_pcache.random_inputs("cuda")  # the tools' 10.45 GB P
+    kern.update(check_fused_4d(inputs))
+    kern.update(check_tune(inputs))
+    del inputs  # before the tools make their own P
+    torch.cuda.empty_cache()
+    kern.update(check_gather_probe())
     tool_launches = phase_tools()
     rows = []
     for name, (what, source, replaces) in KERNELS.items():

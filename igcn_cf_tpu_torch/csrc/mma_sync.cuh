@@ -1,7 +1,8 @@
 // Device helpers shared by the gather-matmul kernels (pcache.cu, K3/K4, and
-// pcache_4d.cu, T1/T2): 16-byte cp.async row copies into shared memory,
-// ldmatrix loads of bf16 tiles, and the warp-level tensor-core product
-// mma.sync m16n8k16 with bf16 operands and f32 sums.
+// pcache_4d.cu, T1-T4): 16-byte cp.async row copies into shared memory, with
+// or without an L2 eviction policy, ldmatrix loads of bf16 tiles, and the
+// warp-level tensor-core product mma.sync m16n8k16 with bf16 operands and
+// f32 sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +20,32 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
+}
+
+// L2 eviction policies for cp_async16_hint: lines copied under evict_last
+// stay in L2 ahead of others, lines under evict_first leave it first.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// cp_async16 under an L2 cache policy from l2_evict_last / l2_evict_first.
+__device__ __forceinline__ void cp_async16_hint(void* smem, const void* gmem,
+                                                bool valid, uint64_t policy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+      ::"r"(s), "l"(gmem), "r"(n), "l"(policy));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

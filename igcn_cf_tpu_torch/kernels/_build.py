@@ -35,9 +35,12 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # returned no error. A run resets them to show which kernels it went through.
 # K1m/K2m and K6m/K7m are the masked variants of K1/K2 and K6/K7 (edge
 # dropout inside the kernel); T1/T2 are the 4-D gather kernels of
-# ``tools/microbench_pcache``.
+# ``tools/microbench_pcache``, T3/T4 their tuning variants of
+# ``tools/microbench_pcache_tune`` and T5 the gather probe of
+# ``tools/microbench_gather``.
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K6m": 0, "K7m": 0, "K8": 0, "K1m": 0, "K2m": 0, "T1": 0, "T2": 0}
+            "K6m": 0, "K7m": 0, "K8": 0, "K1m": 0, "K2m": 0, "T1": 0, "T2": 0,
+            "T3": 0, "T4": 0, "T5": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +75,12 @@ _SIGNATURES = {
     "igcn_fused_fwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (p4, rows, ct, dx, n, nj, tkc, r, dpad, tr, stream)
     "igcn_fused_bwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (p4, rows, x0, out, n, nj, tkc, r, dpad, tr, resident, stream)
+    "igcn_fused_fwd_tune": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (p4, rows, ct, dxt, n, nj, tkc, r, dpad, tr, stream)
+    "igcn_fused_bwd_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (x, idx, out, n, reps, w, row_blocks, bf16, stream)
+    "igcn_gather_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (users, items_t, excl, banned, part_v, part_i, out,
     #  n_users, n_items_pad, d, k, li, stream)
     "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

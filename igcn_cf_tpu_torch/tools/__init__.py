@@ -1,12 +1,18 @@
 """Kernel microbenchmarks of the port, run on the card (ports of the JAX
-package's ``tools/microbench_dual.py`` and ``tools/microbench_pcache.py``):
+package's ``tools/microbench_dual.py``, ``tools/microbench_pcache.py``,
+``tools/microbench_pcache_tune.py`` and ``tools/microbench_gather.py``):
 
     python -m igcn_cf_tpu_torch.tools.microbench_dual [d]
     python -m igcn_cf_tpu_torch.tools.microbench_pcache
+    python -m igcn_cf_tpu_torch.tools.microbench_pcache_tune
+    python -m igcn_cf_tpu_torch.tools.microbench_gather
 
-Times are CUDA-event medians (``utils/timing.cuda_ms``). Rooflines come from
-the card: its name and power limit as nvidia-smi reports them, and its peak
-rates from NVIDIA's data sheet for that name (``datasheet``).
+Times are CUDA-event medians (``utils/timing.cuda_ms``), or for calls of a
+few microseconds the mean over calls queued back to back
+(``utils/timing.queued_cuda_ms``). Rooflines come from the card: its name
+and power limit as nvidia-smi reports them, its peak rates from NVIDIA's
+data sheet for that name (``datasheet``), and its SM count and maximum SM
+clock (``sm_clock``).
 """
 
 from __future__ import annotations
@@ -80,3 +86,15 @@ def report(name: str, ms: float, nbytes: float = 0, flops: float = 0) -> None:
     if flops:
         line += f"   {flops / (ms / 1e3) / 1e12:7.2f} TF/s"
     print(line, flush=True)
+
+
+def sm_clock() -> tuple[int, float]:
+    """Card 0's SM count and its maximum SM clock in MHz, as nvidia-smi
+    reports it (``clocks.max.sm``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0]
+    return sms, float(mhz)

@@ -87,15 +87,20 @@ def _check_4d(p4, rows, x, x_rows, what, tr):
         raise ValueError(f"TR {tr} must be a multiple of 16 in [16, 256]")
 
 
-def _launch_4d(entry, kid, p4, rows, x, out_rows, tr):
+def _launch_4d(entry, kid, p4, rows, x, out_rows, tr, *extra,
+               transposed=False):
+    """Launch C entry ``entry`` over (P4, rows, x padded to dpad, out) and
+    count it under ``kid``; out is (out_rows, d) f32, or with
+    ``transposed`` (d, out_rows). ``extra`` ints follow ``tr``."""
     n, nj, sub, _ = p4.shape
     xb = _d_padded(x)
     dpad = xb.shape[1]
-    out = torch.empty((out_rows, dpad), dtype=torch.float32, device=p4.device)
+    shape = (dpad, out_rows) if transposed else (out_rows, dpad)
+    out = torch.empty(shape, dtype=torch.float32, device=p4.device)
     _build.launch(entry, p4, rows.to(torch.int32).contiguous(), xb, out, n,
-                  nj, sub * 128, rows.shape[0], dpad, tr)
+                  nj, sub * 128, rows.shape[0], dpad, tr, *extra)
     _build.LAUNCHES[kid] += 1
-    return out[:, : x.shape[1]]
+    return out[: x.shape[1]] if transposed else out[:, : x.shape[1]]
 
 
 def fused_fwd_4d(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,

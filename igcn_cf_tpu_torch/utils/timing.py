@@ -33,3 +33,31 @@ def cuda_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# clock cycles the stream sleeps while the host queues the timed calls:
+# about 10 ms at the H100's 1.98 GHz, over the host's time to launch them
+_HOLD_CYCLES = 20_000_000
+
+
+def queued_cuda_ms(fn: Callable[[], object], reps: int = 50,
+                   warmup: int = 2) -> float:
+    """Mean milliseconds of one ``fn()`` call on the device when ``reps``
+    calls run back to back: a sleep kernel holds the stream while the host
+    queues them, so a call shorter than its own launch is timed by the
+    device and not at the host's launch rate."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("queued_cuda_ms times CUDA work and needs a CUDA "
+                           "device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps

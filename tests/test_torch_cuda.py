@@ -447,3 +447,93 @@ def test_fused_4d_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(ValueError):
         bitpack.t1_masked(torch.zeros((512, 128), dtype=torch.int32, device=cuda),
                           torch.zeros(8, 100, device=cuda), 1, 0.3)
+
+
+def _assert_close_scaled(got, want, rtol=1e-4, atol=1e-5):
+    """max |got - want| <= rtol * max |want| + atol, as chip_smoke.py's
+    assert_close_scaled: sums of random products whose f32 order differs."""
+    err = float((got - want).abs().max())
+    assert err <= rtol * float(want.abs().max()) + atol, err
+
+
+@pytest.mark.parametrize("n,npad,nj,r,d,tr,dup", [
+    (700, 2048, 2, 192, 32, 64, False),   # the JAX tune tool's correctness shape
+    (700, 2048, 4, 300, 40, 128, True),   # ragged R, d padded, duplicates
+    (3000, 4096, 2, 520, 128, 32, True),  # two feature tiles, TR 32
+    (500, 1024, 1, 100, 64, 16, False),   # one slab, smallest TR
+])
+def test_tune_kernels_match_plain_and_t1_t2(cuda, n, npad, nj, r, d, tr, dup):
+    """T3 in both variants against its plain version, bit-equal to each
+    other and to T1; T4 against its plain version and T2 transposed, and
+    deterministic."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+
+    gen = torch.Generator(device=cuda).manual_seed(n + r + tr)
+    p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=gen, device=cuda)
+    if dup:
+        rows[r // 2:] = rows[: r - r // 2]
+    x0 = torch.randn((npad, d), generator=gen, device=cuda)
+    ct = torch.randn((r, d), generator=gen, device=cuda)
+    p4 = mpc.to4d(p, nj)
+    before = dict(_build.LAUNCHES)
+    fwd = {res: mpt.fwd_tune(p4, rows, x0, tr, res) for res in (False, True)}
+    got_t = mpt.bwd_t(p4, rows, ct, tr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["T3"] == before["T3"] + 2
+    assert _build.LAUNCHES["T4"] == before["T4"] + 1
+    assert fwd[True].shape == (r, d) and got_t.shape == (d, npad)
+    _assert_close_scaled(fwd[True], mpt.fwd_tune_plain(p4, rows, x0))
+    assert torch.equal(fwd[False], fwd[True])
+    assert torch.equal(fwd[False], mpc.fused_fwd_4d(p4, rows, x0, tr))
+    _assert_close_scaled(got_t, mpt.bwd_t_plain(p4, rows, ct))
+    _assert_close_scaled(got_t, mpc.fused_bwd_4d(p4, rows, ct, tr).T)
+    assert torch.equal(got_t, mpt.bwd_t(p4, rows, ct, tr))  # one writer
+
+
+@pytest.mark.parametrize("n,dtype,reps,shift", [
+    (512, torch.float32, 50, 0),     # the gather tool's cases
+    (2048, torch.float32, 50, 0),
+    (8192, torch.float32, 50, 0),
+    (2048, torch.bfloat16, 50, 0),
+    (300, torch.float32, 1000, 0),   # many wraps of every index
+    (777, torch.bfloat16, 20, -3 * 777 - 5),  # negative ids wrap as mod N
+    (1000, torch.float32, 0, 0),     # no gather: zeros
+])
+def test_gather_chain_kernel_is_bit_exact(cuda, n, dtype, reps, shift):
+    """T5 against its plain version, bit for bit."""
+    from igcn_cf_tpu_torch.tools import microbench_gather as mg
+
+    idx, x = mg.gather_inputs(n, dtype, cuda)
+    idx = idx + shift
+    before = _build.LAUNCHES["T5"]
+    got = mg.gather_chain(idx, x, reps)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["T5"] == before + 1
+    assert got.dtype == dtype and torch.equal(got, mg.gather_chain_plain(idx, x, reps))
+
+
+def test_tune_and_gather_wrappers_refuse_bad_operands(cuda):
+    from igcn_cf_tpu_torch.tools import microbench_gather as mg
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+
+    p4 = torch.zeros((100, 2, 4, 128), dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(10, dtype=torch.int64, device=cuda)
+    x0 = torch.zeros((1024, 64), device=cuda)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        mpt.fwd_tune(p4, rows, x0, tr=24, resident_x0=True)  # TR
+    with pytest.raises(ValueError):
+        mpt.fwd_tune(p4, rows, x0[:1000])  # npad
+    with pytest.raises(ValueError):
+        mpt.bwd_t(p4, rows, torch.zeros((9, 64), device=cuda))  # R
+    idx, x = mg.gather_inputs(58113, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        mg.gather_chain(idx, x)  # a one-column stripe is 232,452 bytes
+    idx, x = mg.gather_inputs(64, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        mg.gather_chain(idx.long(), x)
+    with pytest.raises(ValueError):
+        mg.gather_chain(idx, x.double())
+    assert _build.LAUNCHES == before

@@ -31,7 +31,9 @@ from igcn_cf_tpu_torch.models.lightgcn import LightGCN
 from igcn_cf_tpu_torch.models.ngcf import NGCF
 from igcn_cf_tpu_torch.serve import Recommender
 from igcn_cf_tpu_torch.tools import microbench_dual as mdual
+from igcn_cf_tpu_torch.tools import microbench_gather as mgather
 from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mtune
 
 ROOT = Path(__file__).resolve().parents[1]
 # bf16 operands, f32 sums in another order: only the sums' rounding differs
@@ -314,6 +316,8 @@ def test_tools_refuse_to_time_without_a_card():
     dense_graph.BipartiteDense.build, DeviceNegativeSampler.build,
     dense_graph.choose_backend, pcache.use_pcache,
     retrieval.pack_exclusion_words_device, mdual.main, mpc.main,
+    mtune.main, mtune.correctness, mgather.main, mgather.correctness,
+    mgather.gather_inputs,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -54,7 +54,9 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     "igcn_cf_tpu_torch.models.lightgcn",
                                     "igcn_cf_tpu_torch.models.ngcf",
                                     "igcn_cf_tpu_torch.tools.microbench_dual",
-                                    "igcn_cf_tpu_torch.tools.microbench_pcache"])
+                                    "igcn_cf_tpu_torch.tools.microbench_pcache",
+                                    "igcn_cf_tpu_torch.tools.microbench_pcache_tune",
+                                    "igcn_cf_tpu_torch.tools.microbench_gather"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
