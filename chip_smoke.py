@@ -18,7 +18,12 @@ Phases, each fatal on failure:
      K6/K7 over the mask_words copy of B) and the K8 counterpart (the
      dropout mask over the full B, bit-equal) against their plain PyTorch
      versions on the card, at the slice's shapes, with median times of
-     both.
+     both. Then the two product bodies: all eight entries on a small B
+     whose word columns' set bits fall in several row chunks (m not a
+     multiple of a chunk) at d 1, 33, 64, 128 and 256 against their plain
+     versions; two full-shape launches of K2 and of K7m bit-equal; each
+     body's launch shape and row chunks S; and K2 (d=64) and K7 (d=128) on
+     the full B timed at S 1, 2, 4, 8 and the default.
   4. serve path -- the Gowalla-scale synthetic catalog (seed 2021), an IGCN
      checkpoint (d=64, 3 layers) with weights from a numpy seed, then
      ``Recommender.from_checkpoint`` over the dropui (80%) catalog,
@@ -36,7 +41,8 @@ Phases, each fatal on failure:
      Then a few steps on the recompute engine. Every kernel K1-K8 must
      launch during this phase.
   6. train checks -- K3/K4 at R = 6,144 on the real P against their plain
-     versions; K5 at the validation eval's shape (29,858 users x 45,056
+     versions; a digest of K3's output on a seeded random P (column splits
+     summed by the shared split_sum.cuh pass); K5 at the validation eval's shape (29,858 users x 45,056
      padded items, trained representations, val exclusion) against its plain
      version, with NDCG@20 of both id sets; one train step on each engine
      through the kernels against the same step through the plain versions
@@ -494,6 +500,7 @@ def check_matmul_and_mask(rng, full):
             f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({out[name]['bound_by']})")
     del b, bt
+    check_bodies(rng, g)
     seed = 2**32 - 12345  # near the top of the u32 range
     p = gowalla_preset("IGCN")[0]["dropout"]
     got = bitpack.mask_words(g.B, seed, p)
@@ -542,6 +549,100 @@ def check_matmul_and_mask(rng, full):
             f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({out[name]['bound_by']})")
     return out
+
+
+# the eight entries of the two product bodies: (kernel, plain version, X
+# rows "K" (B @ X, t1 body) or "m" (B^T @ X, t2 body), masked), each taking
+# X row-major (n, d) and, when masked, (seed, p) after it
+def pair_entries():
+    from igcn_cf_tpu_torch.kernels import bitpack
+
+    return {
+        "K1": (lambda wp, x: bitpack.t1(wp, x.T).T,
+               lambda wp, x: bitpack.t1_plain(wp, x.T).T, "K", False),
+        "K2": (lambda wp, x: bitpack.t2(wp, x.T).T,
+               lambda wp, x: bitpack.t2_plain(wp, x.T).T, "m", False),
+        "K1m": (lambda wp, x, s, p: bitpack.t1_masked(wp, x.T, s, p).T,
+                lambda wp, x, s, p: bitpack.t1_masked_plain(wp, x.T, s, p).T,
+                "K", True),
+        "K2m": (lambda wp, x, s, p: bitpack.t2_masked(wp, x.T, s, p).T,
+                lambda wp, x, s, p: bitpack.t2_masked_plain(wp, x.T, s, p).T,
+                "m", True),
+        "K6": (bitpack.mm_fwd, bitpack.mm_fwd_plain, "K", False),
+        "K7": (bitpack.mm_bwd, bitpack.mm_bwd_plain, "m", False),
+        "K6m": (bitpack.mm_fwd_masked, bitpack.mm_fwd_masked_plain, "K", True),
+        "K7m": (bitpack.mm_bwd_masked, bitpack.mm_bwd_masked_plain, "m", True),
+    }
+
+
+def launch_shape(t2: bool, m: int, kw: int, d: int) -> str:
+    import ctypes
+
+    from igcn_cf_tpu_torch.kernels import _build
+
+    shape = (ctypes.c_int * 4)()
+    _build.library().igcn_pair_launch_shape(int(t2), m, kw, d, shape)
+    gx, gy, threads, smem = shape
+    return (f"grid ({gx}, {gy}) x {threads} threads, {smem} B shared"
+            + (f", S = {gy}" if t2 else ""))
+
+
+def check_bodies(rng, g):
+    """The two product bodies beyond the kernels line: all eight entries at
+    a ragged small shape across row chunks and widths; two full-shape
+    launches of K2 and of K7m bit-equal; the launch shapes; the t2 body's
+    row chunks S timed on the full B."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import bitpack
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    entries = pair_entries()
+    seed, p = 2**32 - 4242, 0.3
+    m, kw = 1000, 128  # 8 row chunks of 128, the last one short
+    words = rng.integers(0, 2**32, (m, kw), dtype=np.uint64)
+    words &= rng.integers(0, 2**32, (m, kw), dtype=np.uint64)
+    words[rng.random((m, kw)) >= 0.02] = 0
+    small = torch.as_tensor(words.astype(np.uint32).view(np.int32)).to("cuda")
+    worst = 0.0
+    for d in (1, 33, 64, 128, 256):
+        for name, (kern, plain, rows, masked) in entries.items():
+            x = torch.as_tensor(rng.standard_normal(
+                (kw * 32 if rows == "K" else m, d), np.float32)).to("cuda")
+            mask = (seed, p) if masked else ()
+            got, want = kern(small, x, *mask), plain(small, x, *mask)
+            sync()
+            torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+            worst = max(worst, float((got - want).abs().max()))
+    log(f"# the eight product entries on B {m}x{kw} words "
+        f"({bitpack.t2_splits(m, kw, 64)} row chunks at d=64) at d 1, 33, 64, "
+        f"128, 256: all match their plain versions, max_abs_err {worst:.3g}")
+
+    m, kw = g.B.shape
+    for name, d, mask in (("K2", 64, ()), ("K7m", 64, (2**32 - 777, 0.1))):
+        kern, _, rows, _ = entries[name]
+        x = torch.as_tensor(rng.standard_normal(
+            (kw * 32 if rows == "K" else m, d), np.float32)).to("cuda")
+        if not torch.equal(kern(g.B, x, *mask), kern(g.B, x, *mask)):
+            raise AssertionError(f"{name}: two launches on the full B differ")
+    log(f"# K2 and K7m (d=64) on the full B {m}x{kw}: two launches bit-equal")
+    log(f"# launch shapes on the full B: t1 body d=64 {launch_shape(False, m, kw, 64)}; "
+        f"t2 body d=64 {launch_shape(True, m, kw, 64)}; "
+        f"t2 body d=128 {launch_shape(True, m, kw, 128)}")
+
+    for entry, kid, d in (("igcn_t2", "K2", 64), ("igcn_bb_bwd", "K7", 128)):
+        xt = torch.as_tensor(rng.standard_normal((d, m), np.float32)).to("cuda")
+        default = bitpack.t2_splits(m, kw, d)
+        want = bitpack._t2_launch(entry, kid, g.B, xt, ())
+        times = []
+        for splits in (1, 2, 4, 8):
+            got = bitpack._t2_launch(entry, kid, g.B, xt, (), splits)
+            torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+            ms = cuda_ms(lambda: bitpack._t2_launch(entry, kid, g.B, xt, (), splits))
+            times.append(f"S {splits} {ms:.4f}")
+        ms = cuda_ms(lambda: bitpack._t2_launch(entry, kid, g.B, xt, ()))
+        log(f"# {kid} d={d} on the full B, ms by row chunks: {', '.join(times)}; "
+            f"default S {default} {ms:.4f}")
 
 
 def phase_kernels(full):
@@ -839,7 +940,26 @@ def check_gather(trainer):
     again = pcache.gather_bwd(p, rows, ctb)
     if not torch.equal(again, pcache.gather_bwd(p, rows, ctb)):
         raise AssertionError("K4 is not deterministic")
+    log(f"# K3 digest on a seeded 4096 x 4096 P, R=6,144, d=64: {k3_digest()}")
     return out
+
+
+def k3_digest() -> str:
+    """sha256 of K3's output on a seeded random P (4,096 x 4,096 bf16,
+    R = 6,144 rows with repeats, d = 64): a split shape, so the digest
+    covers the split sum; equal digests from two trees mean bit-equal K3."""
+    import hashlib
+
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import pcache
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p = torch.randn((4096, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    rows = torch.randint(0, 4096, (6144,), generator=gen, device="cuda")
+    x0 = torch.randn((4096, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    out = pcache.gather_fwd(p, rows, x0).contiguous().cpu()
+    return hashlib.sha256(out.numpy().tobytes()).hexdigest()
 
 
 def check_eval_topk(trainer, name):

@@ -31,8 +31,8 @@
 // K3: grid (row tiles, split, d tiles). R = 6,144 gives only 96 row tiles,
 // too few for 132 SMs, so the npad columns are split in S ranges (S from
 // igcn_gather_fwd_splits); each split writes its own partial (R, d) slab
-// and a second small kernel sums the slabs in split order. No atomics: the
-// result is the same on every run.
+// and a second small kernel (split_sum.cuh) sums the slabs in split order.
+// No atomics: the result is the same on every run.
 //
 // K4: contracts over the R gathered rows, which on the TPU was a sequential
 // grid axis. Here each block OWNS one 64-column tile of dX0 and walks all R
@@ -47,6 +47,7 @@
 #include <stdint.h>
 
 #include "mma_sync.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
@@ -160,18 +161,6 @@ gather_fwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
   }
 }
 
-// K3's second pass: out = sum over splits, in split order.
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, long long size,
-                                  int splits) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < size; i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += part[(size_t)k * size + i];
-    out[i] = s;
-  }
-}
-
 // K4: dx (npad, dpad) = P[rows]^T @ ct, one block per 64 x 64 output tile.
 __global__ void __launch_bounds__(kThreads)
 gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
@@ -267,12 +256,9 @@ int igcn_gather_fwd(const void* p, const void* rows, const void* x0,
       static_cast<const bf16*>(x0), dst, n, npad, r_tot, dpad, k_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long size = (long long)r_tot * dpad;
-  long long blocks = (size + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  sum_splits_kernel<<<(int)blocks, 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), size, splits);
-  return (int)cudaGetLastError();
+  return (int)igcn::sum_splits(static_cast<const float*>(part),
+                               static_cast<float*>(out),
+                               (long long)r_tot * dpad, splits, s);
 }
 
 // p (n, npad) bf16; rows (r_tot,) int32; ct (r_tot, dpad) bf16;

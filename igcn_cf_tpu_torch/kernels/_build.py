@@ -49,22 +49,19 @@ _U = ctypes.c_uint
 # c_int; each returns cudaGetLastError() after its launches. The stream is
 # the last argument and is added by ``launch``.
 _SIGNATURES = {
-    # (wp, x1 (K, d) bf16, y1 (m, d) f32, m, kw, d, stream)
+    # t1 body: (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, stream), d a
+    # multiple of 8; the masked entries take (seed, thr) before the stream
     "igcn_t1": (_P, _P, _P, _I, _I, _I, _P),
-    # (wp, x2 (m, d) bf16, y2 (K, d) f32, m, kw, d, stream)
-    "igcn_t2": (_P, _P, _P, _I, _I, _I, _P),
-    # (wp, x1 (K, d) bf16, y1 (m, d) f32, m, kw, d, seed, thr, stream)
-    "igcn_t1_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
-    # (wp, x2 (m, d) bf16, y2 (K, d) f32, m, kw, d, seed, thr, stream)
-    "igcn_t2_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
-    # (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, stream)
     "igcn_bb_fwd": (_P, _P, _P, _I, _I, _I, _P),
-    # (wp, x (m, d) bf16, y (K, d) f32, m, kw, d, stream)
-    "igcn_bb_bwd": (_P, _P, _P, _I, _I, _I, _P),
-    # (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, seed, thr, stream)
+    "igcn_t1_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
     "igcn_bb_fwd_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
-    # (wp, x (m, d) bf16, y (K, d) f32, m, kw, d, seed, thr, stream)
-    "igcn_bb_bwd_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
+    # t2 body: (wp, x (m, d) bf16, part (splits, K, d) f32, y (K, d) f32, m,
+    # kw, d, splits, stream); the masked entries take (seed, thr) before
+    # the stream
+    "igcn_t2": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "igcn_bb_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "igcn_t2_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
+    "igcn_bb_bwd_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
     # (wp, out, m, kw, seed, thr, stream)
     "igcn_mask_words": (_P, _P, _I, _I, _U, _I, _P),
     # (p, rows, x0, part, out, n, npad, r, dpad, splits, stream)
@@ -199,6 +196,11 @@ def library() -> ctypes.CDLL:
         lib.igcn_fused_topk_chunks.restype = ctypes.c_int
         lib.igcn_gather_fwd_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_gather_fwd_splits.restype = ctypes.c_int
+        lib.igcn_t2_splits.argtypes = [ctypes.c_int] * 3
+        lib.igcn_t2_splits.restype = ctypes.c_int
+        lib.igcn_pair_launch_shape.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.igcn_pair_launch_shape.restype = None
         _lib = lib
     return _lib
 
@@ -211,11 +213,15 @@ def launch(name: str, *args) -> None:
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on different devices")
     lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args]
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # no device switch when the device is already current: a launch's host
+    # time counts wherever the card waits on the host
+    if dev.index == torch.cuda.current_device():
         err = getattr(lib, name)(*c_args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = getattr(lib, name)(*c_args, stream)
     if err != 0:
         msg = lib.igcn_error_string(err).decode()
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")

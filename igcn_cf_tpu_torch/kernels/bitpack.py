@@ -141,9 +141,20 @@ def t2_plain(wp: torch.Tensor, x2t: torch.Tensor) -> torch.Tensor:
 # -- the transposed pair: CUDA kernels ----------------------------------------
 
 
-def _check_pair_operands(wp: torch.Tensor, xt: torch.Tensor, n: int, what: str):
+def _check_words(wp: torch.Tensor):
+    """The packed operand of a product kernel: contiguous (m, kw) int32 with
+    kw a multiple of TKP, since the layout puts word w's bit b in column
+    (w // TKP) * TK + b * TKP + w % TKP, outside 32 * kw columns for any
+    other kw."""
     if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
         raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+    if wp.shape[1] % TKP:
+        raise ValueError(f"wp has {wp.shape[1]} words a row, not a multiple "
+                         f"of {TKP}")
+
+
+def _check_pair_operands(wp: torch.Tensor, xt: torch.Tensor, n: int, what: str):
+    _check_words(wp)
     if xt.device != wp.device:
         raise ValueError(f"{what} is on {xt.device}, wp on {wp.device}")
     if not xt.is_floating_point() or xt.dim() != 2 or xt.shape[1] != n:
@@ -151,38 +162,73 @@ def _check_pair_operands(wp: torch.Tensor, xt: torch.Tensor, n: int, what: str):
                          f"{tuple(xt.shape)} {xt.dtype}")
 
 
-def _bf16_rows(xt: torch.Tensor) -> torch.Tensor:
-    """(d, n) operand -> contiguous (n, d) bf16, the rows the kernels read."""
-    out = torch.empty((xt.shape[1], xt.shape[0]), dtype=torch.bfloat16,
-                      device=xt.device)
-    out.copy_(xt.T)
+def _bf16_rows(xt: torch.Tensor, width: int | None = None) -> torch.Tensor:
+    """(d, n) operand -> contiguous (n, width) bf16, the rows the kernels
+    read; columns past d (``width`` defaults to d) are zeros."""
+    d, n = xt.shape
+    if width is None or width == d:
+        return torch.empty((n, d), dtype=torch.bfloat16, device=xt.device).copy_(xt.T)
+    out = torch.zeros((n, width), dtype=torch.bfloat16, device=xt.device)
+    out[:, :d].copy_(xt.T)
     return out
+
+
+# Both product bodies read X's rows as 16-byte vectors: their wrappers pad d
+# to a multiple of this with zero columns, which the bodies sum and the
+# results leave out.
+_D_ALIGN = 8
+
+
+def _t1_launch(entry: str, kid: str, wp: torch.Tensor, xt: torch.Tensor,
+               mask) -> torch.Tensor:
+    """Y (m, d) = B @ X through a t1-body entry, X given as (d, K); ``mask``
+    is () or (seed, thr)."""
+    m, kw = wp.shape
+    d = xt.shape[0]
+    x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
+    y = torch.empty((m, x.shape[1]), dtype=torch.float32, device=wp.device)
+    _build.launch(entry, wp, x, y, m, kw, x.shape[1], *mask)
+    _build.LAUNCHES[kid] += 1
+    return y if x.shape[1] == d else y[:, :d]
+
+
+def t2_splits(m: int, kw: int, d: int) -> int:
+    """Row chunks of the t2 body (K2/K2m/K7/K7m) at this shape: the number
+    of partial (K, d) f32 slabs its wrapper allocates (none when 1)."""
+    return _build.library().igcn_t2_splits(m, kw, pad_to(d, _D_ALIGN))
+
+
+def _t2_launch(entry: str, kid: str, wp: torch.Tensor, xt: torch.Tensor,
+               mask, splits: int | None = None) -> torch.Tensor:
+    """Y (K, d) = B^T @ X through a t2-body entry, X given as (d, m);
+    ``mask`` is () or (seed, thr). ``splits`` (row chunks) defaults to
+    ``t2_splits``; another value is for timing the choice."""
+    m, kw = wp.shape
+    d = xt.shape[0]
+    x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
+    dp = x.shape[1]
+    splits = t2_splits(m, kw, d) if splits is None else splits
+    y = torch.empty((kw * 32, dp), dtype=torch.float32, device=wp.device)
+    part = y if splits == 1 else torch.empty((splits, kw * 32, dp),
+                                             dtype=torch.float32,
+                                             device=wp.device)
+    _build.launch(entry, wp, x, part, y, m, kw, dp, splits, *mask)
+    _build.LAUNCHES[kid] += 1
+    return y if dp == d else y[:, :d]
 
 
 def _t1_cuda(entry: str, kid: str, wp: torch.Tensor, x1t: torch.Tensor,
              *mask) -> torch.Tensor:
     """Launch a t1 entry; ``mask`` is (seed, thr) for the masked one."""
-    m, kw = wp.shape
-    _check_pair_operands(wp, x1t, kw * 32, "x1t")
-    x1 = _bf16_rows(x1t)
-    d = x1.shape[1]
-    y1 = torch.empty((m, d), dtype=torch.float32, device=wp.device)
-    _build.launch(entry, wp, x1, y1, m, kw, d, *mask)
-    _build.LAUNCHES[kid] += 1
-    return y1.T
+    _check_pair_operands(wp, x1t, wp.shape[1] * 32, "x1t")
+    return _t1_launch(entry, kid, wp, x1t, mask).T
 
 
 def _t2_cuda(entry: str, kid: str, wp: torch.Tensor, x2t: torch.Tensor,
              *mask) -> torch.Tensor:
     """Launch a t2 entry; ``mask`` is (seed, thr) for the masked one."""
-    m, kw = wp.shape
-    _check_pair_operands(wp, x2t, m, "x2t")
-    x2 = _bf16_rows(x2t)
-    d = x2.shape[1]
-    y2 = torch.empty((kw * 32, d), dtype=torch.float32, device=wp.device)
-    _build.launch(entry, wp, x2, y2, m, kw, d, *mask)
-    _build.LAUNCHES[kid] += 1
-    return y2.T
+    _check_pair_operands(wp, x2t, wp.shape[0], "x2t")
+    return _t2_launch(entry, kid, wp, x2t, mask).T
 
 
 def t1(wp: torch.Tensor, x1t: torch.Tensor) -> torch.Tensor:
@@ -314,37 +360,32 @@ def mm_bwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mm_cuda(entry: str, kid: str, wp: torch.Tensor, x: torch.Tensor,
-             n_in: int, n_out: int, *mask) -> torch.Tensor:
-    """Launch a bb_matmul entry; ``mask`` is (seed, thr) for the masked
-    entries."""
-    if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
-        raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+             transpose: bool, *mask) -> torch.Tensor:
+    """Launch a bb_matmul entry: B @ X (t1 body) or, with ``transpose``,
+    B^T @ X (t2 body); ``mask`` is (seed, thr) for the masked entries."""
+    _check_words(wp)
     if x.device != wp.device:
         raise ValueError(f"x is on {x.device}, wp on {wp.device}")
+    n_in = wp.shape[0] if transpose else wp.shape[1] * 32
     if not x.is_floating_point() or x.dim() != 2 or x.shape[0] != n_in:
         raise ValueError(f"x must be a float ({n_in}, d) tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    m, kw = wp.shape
-    xb = x.to(torch.bfloat16).contiguous()
-    y = torch.empty((n_out, x.shape[1]), dtype=torch.float32, device=wp.device)
-    _build.launch(entry, wp, xb, y, m, kw, x.shape[1], *mask)
-    _build.LAUNCHES[kid] += 1
-    return y
+    if transpose:
+        return _t2_launch(entry, kid, wp, x.T, mask)
+    return _t1_launch(entry, kid, wp, x.T, mask)
 
 
 def mm_fwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K6: Y (m, d) = B @ X, X (K, d) in its own row-major layout."""
     if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_fwd", "K6", wp, x, wp.shape[1] * 32,
-                        wp.shape[0])
+        return _mm_cuda("igcn_bb_fwd", "K6", wp, x, False)
     return mm_fwd_plain(wp, x)
 
 
 def mm_bwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K7: Y (K, d) = B^T @ X, X (m, d), with no transposed copy of B."""
     if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_bwd", "K7", wp, x, wp.shape[0],
-                        wp.shape[1] * 32)
+        return _mm_cuda("igcn_bb_bwd", "K7", wp, x, True)
     return mm_bwd_plain(wp, x)
 
 
@@ -531,8 +572,8 @@ def mm_fwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
     ``mask_words(wp, seed, p)``."""
     seed = _check_seed(seed)
     if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_fwd_masked", "K6m", wp, x, wp.shape[1] * 32,
-                        wp.shape[0], seed, _threshold_u8(p))
+        return _mm_cuda("igcn_bb_fwd_masked", "K6m", wp, x, False, seed,
+                        _threshold_u8(p))
     return mm_fwd_masked_plain(wp, x, seed, p)
 
 
@@ -541,8 +582,8 @@ def mm_bwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
     """K7m: Y (K, d) = (B * M)^T @ X over the same keep decisions as K6m."""
     seed = _check_seed(seed)
     if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_bwd_masked", "K7m", wp, x, wp.shape[0],
-                        wp.shape[1] * 32, seed, _threshold_u8(p))
+        return _mm_cuda("igcn_bb_bwd_masked", "K7m", wp, x, True, seed,
+                        _threshold_u8(p))
     return mm_bwd_masked_plain(wp, x, seed, p)
 
 

@@ -131,6 +131,17 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     assert _build.LAUNCHES == before
 
 
+def test_bf16_rows_pads_with_zero_columns():
+    """The product wrappers' operand copy: (d, n) -> (n, width) bf16 rows,
+    the columns past d zero (the bodies read rows as 16-byte vectors)."""
+    xt = torch.randn(5, 7)
+    rows = bitpack._bf16_rows(xt, 8)
+    assert rows.shape == (7, 8) and rows.dtype == torch.bfloat16
+    assert torch.equal(rows[:, :5], xt.T.to(torch.bfloat16))
+    assert not rows[:, 5:].any()
+    assert torch.equal(bitpack._bf16_rows(xt), xt.T.to(torch.bfloat16))
+
+
 def test_other_devices_are_refused():
     wp = torch.zeros((TM, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):

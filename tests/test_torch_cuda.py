@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from igcn_cf_tpu_torch.kernels import _build, bitpack, pcache, retrieval
 from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
 
@@ -537,3 +538,169 @@ def test_tune_and_gather_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(ValueError):
         mg.gather_chain(idx, x.double())
     assert _build.LAUNCHES == before
+
+
+# -- the redesigned bodies: t2 (row chunks, summed in order) and t1 (16-byte
+#    word and X1 loads, lane groups) at ragged shapes ----------------------
+
+# entry -> (kernel, plain, X rows "K" (B @ X) or "m" (B^T @ X), masked), as
+# chip_smoke.py holds them
+PAIR_ENTRIES = chip_smoke.pair_entries()
+UNMASKED = {"K1m": "K1", "K2m": "K2", "K6m": "K6", "K7m": "K7"}
+MASK_SEED, MASK_P = 2**32 - 5, 0.3
+
+
+def _sparse_words(seed, m, kw, live, device):
+    """(m, kw) int32 words from numpy: a share ``live`` of the words hold
+    1-32 random set bits (high bits included), the rest are zero."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, (m, kw), dtype=np.uint64)
+    words &= rng.integers(0, 2**32, (m, kw), dtype=np.uint64)  # ~8 bits
+    words[rng.random((m, kw)) >= live] = 0
+    return torch.as_tensor(words.astype(np.uint32).view(np.int32)).to(device)
+
+
+def _run_entry(name, wp, d, cuda, seed=0):
+    kern, plain, rows, masked = PAIR_ENTRIES[name]
+    m, kw = wp.shape
+    gen = torch.Generator(device=cuda).manual_seed(seed + d)
+    x = torch.randn((kw * 32 if rows == "K" else m, d), generator=gen, device=cuda)
+    mask = (MASK_SEED, MASK_P) if masked else ()
+    return kern(wp, x, *mask), plain(wp, x, *mask), x
+
+
+@pytest.mark.parametrize("d", [1, 33, 64, 128, 256])
+@pytest.mark.parametrize("m,kw,live", [
+    (1000, 128, 0.02),  # 8 row chunks, the last one short
+    (700, 256, 0.02),   # 6 chunks, two column tiles
+    (100, 128, 0.1),    # one chunk: t2 writes y directly
+])
+@pytest.mark.parametrize("name", list(PAIR_ENTRIES))
+def test_pair_bodies_match_plain_at_ragged_shapes(cuda, name, m, kw, live, d):
+    """All eight entries against their plain versions where one word
+    column's set bits fall in several row chunks and m is not a multiple of
+    a chunk. (kw is a multiple of the layout's 128-word tile, so of a
+    block's words too: the wrappers refuse any other kw.)"""
+    wp = _sparse_words(m * kw, m, kw, live, cuda)
+    before = _build.LAUNCHES[name]
+    got, want, _ = _run_entry(name, wp, d, cuda)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_t2_splits_cover_the_test_shapes(cuda):
+    """The ragged cases above do cross chunk boundaries, and the small one
+    has a single chunk."""
+    for d in (1, 33, 64, 128, 256):
+        assert bitpack.t2_splits(1000, 128, d) > 1
+        assert bitpack.t2_splits(700, 256, d) > 1
+        assert bitpack.t2_splits(100, 128, d) == 1
+    assert bitpack.t2_splits(0, 128, 64) == bitpack.t2_splits(64, 0, 64) == 1
+
+
+@pytest.mark.parametrize("m,kw", [(0, 128), (300, 0), (0, 0)])
+@pytest.mark.parametrize("name", list(PAIR_ENTRIES))
+def test_pair_bodies_take_empty_operands(cuda, name, m, kw):
+    """m = 0 and kw = 0: outputs of the right shape, zeros where they have
+    any element."""
+    wp = torch.zeros((m, kw), dtype=torch.int32, device=cuda)
+    got, want, _ = _run_entry(name, wp, 64, cuda)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("name", ["K2", "K2m", "K7", "K7m"])
+def test_t2_entries_are_deterministic_across_chunks(cuda, name):
+    """Two launches of every t2 entry at a shape with several row chunks are
+    bit-equal."""
+    wp = _sparse_words(7, 3000, 128, 0.05, cuda)
+    assert bitpack.t2_splits(3000, 128, 64) > 1
+    a, _, x = _run_entry(name, wp, 64, cuda)
+    kern, _, _, masked = PAIR_ENTRIES[name]
+    b = kern(wp, x, *((MASK_SEED, MASK_P) if masked else ()))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+@pytest.mark.parametrize("m,kw", [(1000, 128), (700, 256)])
+@pytest.mark.parametrize("name", list(UNMASKED))
+def test_masked_bodies_equal_unmasked_over_mask_words(cuda, name, m, kw, d):
+    """K1m/K2m/K6m/K7m bit-equal to K1/K2/K6/K7 over mask_words' copy of B,
+    at ragged shapes and across row chunks."""
+    wp = _sparse_words(m + kw, m, kw, 0.05, cuda)
+    got, _, x = _run_entry(name, wp, d, cuda)
+    unmasked = PAIR_ENTRIES[UNMASKED[name]][0]
+    want = unmasked(bitpack.mask_words(wp, MASK_SEED, MASK_P), x)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, unmasked(wp, x))  # it drops
+
+
+@pytest.mark.parametrize("d", [8, 64, 256])
+@pytest.mark.parametrize("name", ["K1", "K6", "K1m", "K6m"])
+def test_t1_rows_with_0_1_and_many_bits_in_one_step(cuda, name, d):
+    """Rows whose 128-word step holds no set bit, one, a few in one word and
+    one lane, and more than the lane groups take in one round (several
+    rounds, words of several lanes, bits up to 31), against the plain
+    versions."""
+    kw = 256
+    words = np.zeros((6, kw), np.uint64)
+    words[1, 5] = 1 << 31                                  # one bit
+    words[2, 4] = 0b1011                                    # 3 bits, one word
+    words[2, 7] = 1 << 17                                   # and one lane over
+    words[3, [0, 1, 2, 3, 50, 127]] = 0xF0F0F0F1            # 6 x 13 bits
+    words[4, 128:256:3] = 0xFFFFFFFF                        # dense second step
+    words[5, [3, 130]] = [1 << 9, 1 << 30]                  # one in each step
+    wp = torch.as_tensor(words.astype(np.uint32).view(np.int32)).to(cuda)
+    kern, plain, _, masked = PAIR_ENTRIES[name]
+    x = torch.randn((kw * 32, d), device=cuda)
+    mask = (MASK_SEED, 0.0) if masked else ()  # p = 0 keeps every edge
+    got, want = kern(wp, x, *mask), plain(wp, x, *mask)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("name", list(PAIR_ENTRIES))
+def test_pair_bodies_read_a_misaligned_view(cuda, name):
+    """B given as a contiguous view that starts 4 bytes into a 16-byte
+    vector: the bodies load its words one by one, with the same sums in the
+    same order as over an aligned copy."""
+    wp = _sparse_words(11, 500, 128, 0.05, cuda)
+    flat = torch.empty(wp.numel() + 1, dtype=torch.int32, device=cuda)
+    view = flat[1:].view(wp.shape)
+    view.copy_(wp)
+    assert view.data_ptr() % 16
+    got, _, x = _run_entry(name, view, 64, cuda)
+    kern, _, _, masked = PAIR_ENTRIES[name]
+    assert torch.equal(got, kern(wp, x, *((MASK_SEED, MASK_P) if masked else ())))
+
+
+def test_pair_wrappers_refuse_words_outside_the_layout(cuda):
+    """kw not a multiple of 128 would put columns past 32 * kw."""
+    wp = torch.zeros((64, 100), dtype=torch.int32, device=cuda)
+    for fn, x in ((bitpack.t1, torch.zeros(8, 3200, device=cuda)),
+                  (bitpack.t2, torch.zeros(8, 64, device=cuda)),
+                  (bitpack.mm_fwd, torch.zeros(3200, 8, device=cuda)),
+                  (bitpack.mm_bwd, torch.zeros(64, 8, device=cuda))):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(wp, x)
+
+
+@pytest.mark.parametrize("name", ["K1m", "K6m"])
+def test_masked_t1_is_bit_equal_on_rows_past_one_list(cuda, name):
+    """Rows with more set bits than the t1 body lists at once (256): the
+    masked body lists the undropped edges and drops them at each gather,
+    the unmasked body over mask_words' copy lists only the kept ones, and
+    both give every kept edge the same lane group and order."""
+    rng = np.random.default_rng(12)
+    words = np.zeros((8, 256), np.uint64)
+    words[0] = 0xFFFFFFFF                                      # 8,192 bits
+    words[1, ::2] = rng.integers(0, 2**32, 128, dtype=np.uint64)  # ~2,048
+    words[2, :40] = 0x0F0F0F0F                                 # 640
+    words[3, 7] = 1                                            # one
+    wp = torch.as_tensor(words.astype(np.uint32).view(np.int32)).to(cuda)
+    got, _, x = _run_entry(name, wp, 64, cuda)
+    unmasked = PAIR_ENTRIES[UNMASKED[name]][0]
+    assert torch.equal(got, unmasked(bitpack.mask_words(wp, MASK_SEED, MASK_P), x))
