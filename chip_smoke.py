@@ -66,10 +66,15 @@ Phases, each fatal on failure:
      feature aggregation (old-path, bbt-drop, premask) on the full B with
      the same draws, outputs and gradients; T1/T2 (the 4-D fused gather
      kernels) on the tool's full-shape random P against their plain
-     versions and against K3/K4 on the same P; on that P too, T3 (the tune
+     versions and against K3/K4 on the same P; T1's launch shape, its time
+     at column splits S 1, 2, 4, the chosen S and the largest, and its
+     device-only time by torch.profiler; on that P too, T3 (the tune
      tool's forward, X0 per stage and X0 kept in L2) against its plain
-     version and bit-equal to T1, and T4 (its backward, written as dX0^T)
-     against its plain version and T2 transposed, deterministic; T5 (the
+     version and, in both variants, bit-equal to T1 at every NJ and TR of
+     the tune grid, T1 there against the plain version, with device-only
+     times; and T4 (its backward, written
+     as dX0^T) against its plain version and T2 transposed, deterministic;
+     T5 (the
      gather probe) bit-equal to its plain version at each of the gather
      tool's cases. With that P freed, the four tools' ``main()``
      (``igcn_cf_tpu_torch.tools.microbench_dual``, ``microbench_pcache``,
@@ -165,7 +170,7 @@ KERNELS = {
     "K2m": ("bbt_pair_dropped t2: y2t = ((B o M2)^T @ X2)^T, keep mask in the kernel",
             "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
             "igcn_cf_tpu/kernels/bitpack.py:529"),
-    "T1": ("fused_fwd_4d: P4[rows] @ X0, one block per TR rows",
+    "T1": ("fused_fwd_4d: P4[rows] @ X0, a block per TR rows and column split",
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:91"),
     "T2": ("fused_bwd_4d: P4[rows]^T @ ct, one block per 128 columns",
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:178"),
@@ -1247,14 +1252,103 @@ def check_fused_4d(inputs):
             f"ms ({out[name]['bound_by']})")
     if not torch.equal(mpc.fused_bwd_4d(p4, rows, ct), mpc.fused_bwd_4d(p4, rows, ct)):
         raise AssertionError("T2 is not deterministic")
+    check_fwd_splits(p4, rows, x0, out["T1"]["ms"])
     return out
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device-only milliseconds of one ``fn()`` call: the CUDA activities of
+    ``calls`` calls under torch.profiler, summed, over ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    total = sum(evt.self_device_time_total for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA)
+    if not total > 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return total / 1e3 / calls
+
+
+def check_fwd_splits(p4, rows, x0, events_ms):
+    """T1's body beyond the kernels line, on the tool's P: its launch shape,
+    its time at S 1, 2, 4, the chosen S and the largest S (each against
+    the plain version), and its device-only time beside its event time."""
+    import torch
+
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    r, d, tr = rows.shape[0], x0.shape[1], mpc.TR
+    npad = p4.shape[1] * p4.shape[2] * 128
+    shape = mpc.fwd_launch_shape(r, npad, d, tr)
+    log(f"# T1/T3 body launch at TR {tr}, the tool's shape: grid ({shape['row_blocks']}, "
+        f"{shape['splits']}, {shape['d_tiles']}) x {shape['threads']} threads, "
+        f"{shape['smem_bytes']} B shared, {shape['stages']} stages, "
+        f"{shape['blocks_per_sm']} blocks an SM, S = {shape['splits']} of at most "
+        f"{shape['max_splits']}; S at TR 64 {mpc.fwd_splits(r, npad, d, 64)}, "
+        f"TR 32 {mpc.fwd_splits(r, npad, d, 32)}")
+    x0b = x0.to(torch.bfloat16)
+    want = mpc.fused_fwd_4d_plain(p4, rows, x0b)
+    times = []
+    for splits in sorted({1, 2, 4, shape["splits"], shape["max_splits"]}):
+        got = mpc.fused_fwd_4d(p4, rows, x0b, tr, splits)
+        sync()
+        assert_close_scaled(got, want)
+        ms = cuda_ms(lambda: mpc.fused_fwd_4d(p4, rows, x0b, tr, splits))
+        times.append(f"S {splits} {ms:.4f}")
+    del got, want
+    dev = device_ms(lambda: mpc.fused_fwd_4d(p4, rows, x0b, tr))
+    log(f"# T1 (TR {tr}) ms by column splits, each within GATHER_RTOL of the "
+        f"plain version: {', '.join(times)}; at the chosen S {events_ms:.4f} ms "
+        f"by events, {dev:.4f} ms on the device (torch.profiler, body and slab sum)")
+
+
+def check_tune_grid(p, rows, x0b):
+    """T3 in both variants at every NJ and TR of the tune tool's forward
+    grid (its (NJ, TR, resident_x0) rows and the other variant beside
+    each), on the tool's P: T1 at that (NJ, TR) within GATHER_RTOL of the
+    plain version (S and its split bounds move with TR), T3 bit-equal to
+    it, and each one's device-only time."""
+    import torch
+
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+
+    trs = sorted({tr for tr, _ in mpt.FWD_GRID}, reverse=True)
+    # the plain version depends on neither NJ nor TR
+    want = mpc.fused_fwd_4d_plain(mpc.to4d(p, mpc.NJ), rows, x0b)
+    dev, errs = [], []
+    for nj in mpt.NJS:
+        p4 = mpc.to4d(p, nj)
+        for tr in trs:
+            t1 = mpc.fused_fwd_4d(p4, rows, x0b, tr)
+            sync()
+            errs.append(f"nj={nj} tr={tr} {assert_close_scaled(t1, want):.3g}")
+            for res in (False, True):
+                if not torch.equal(mpt.fwd_tune(p4, rows, x0b, tr, res), t1):
+                    raise AssertionError(f"T3 nj={nj} tr={tr} resident_x0={res} "
+                                         "differs from T1")
+                ms = device_ms(lambda: mpt.fwd_tune(p4, rows, x0b, tr, res))
+                dev.append(f"nj={nj} tr={tr} resident={int(res)} {ms:.4f}")
+    log(f"# T1 within GATHER_RTOL of the plain version at every NJ {mpt.NJS} "
+        f"and TR {tuple(trs)} of the tune grid on the tool's P, max_abs_err "
+        f"(outputs up to {float(want.abs().max()):.4g}): {', '.join(errs)}; T3 "
+        f"in both variants bit-equal to T1 at each; device-only ms a call "
+        f"(torch.profiler): {', '.join(dev)}")
 
 
 def check_tune(inputs):
     """T3 in both variants and T4 on the tool's full-shape random P, at the
     pcache tool's TR and NJ: T3 against its plain version and bit-equal to
-    T1 (the two variants differ only in L2 policy), T4 against its plain
-    version and T2 transposed, deterministic."""
+    T1 (the two variants differ only in L2 policy) there and at every row
+    of the tune grid, T4 against its plain version and T2 transposed,
+    deterministic."""
     import torch
 
     from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
@@ -1289,6 +1383,7 @@ def check_tune(inputs):
         f"{out['T3']['library_ms']:.4f} ms, bound {out['T3']['bound_ms']:.4f} ms "
         f"({out['T3']['bound_by']})")
     del fwd, t1, want
+    check_tune_grid(p, rows, x0b)
 
     got = mpt.bwd_t(p4, rows, ctb, tr)
     want = mpt.bwd_t_plain(p4, rows, ctb)

@@ -19,17 +19,39 @@
 // 2 B = 906 MB, 0.270 ms at the data sheet's 3.35 TB/s, against 2 * R *
 // npad * d = 5.8e10 FLOP, 0.059 ms at 989 TFLOP/s bf16: all four kernels are
 // bound by the P stream. They multiply on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 sums), fed by a two-stage cp.async ring: the
-// building blocks of K3/K4 (pcache.cu; helpers in mma_sync.cuh).
+// m16n8k16 (bf16 in, f32 sums), fed by cp.async rings: the building blocks
+// of K3/K4 (pcache.cu; helpers in mma_sync.cuh).
 //
-// T1 keeps the TPU kernel's design, which K3 gave up: one block owns TR
-// gathered rows (TR / 16 warps, 16 rows each) and walks the NJ slabs in
-// order, 64 columns at a time, keeping the (TR, 64) sum in registers to the
-// end (each 64-column stage summed apart and folded in, see fold). No
-// column split and no second pass; the TPU kernel's scratch
-// accumulator across slabs is the registers here. At R / TR = 48 blocks on
-// 132 SMs most of the card idles: T1 against K3 on the same P measures what
-// K3's column split buys.
+// T1's forward body. A gathered row is a random 147 KB run of P, so the
+// stream is a gather of 128-byte row segments, and at about 1 us of latency
+// the card reads only as fast as it keeps bytes in flight (Little's law:
+// 3.35 TB/s needs ~3.4 MB in flight). The TPU kernel's design (one block
+// per TR rows walking every slab, two stages) kept 48 blocks busy at TR
+// 128, at most two 16 KB stages each in flight: ~0.8 TB/s, 1.04 ms. So:
+// - The npad contraction is split in S column ranges of whole stages
+//   (grid: row blocks x S x feature tiles). S (fwd_splits) is the most
+//   splits whose grid the card runs in one wave at this TR, by the
+//   occupancy the runtime reports; each split writes a partial (R, dpad)
+//   slab, and split_sum.cuh adds the slabs in split order afterwards: one
+//   writer per output, no atomics, two launches bit-equal.
+// - A kStages-deep cp.async ring of 64-column stages keeps kStages - 1
+//   stages of P in flight while one is summed, with one barrier a stage:
+//   at TR 128, 2 blocks an SM hold 2 x 16 KB each, ~8.4 MB across the
+//   card. Two- and four-stage rings, 128-column stages and an L2::256B
+//   prefetch of P were no faster on the card once S fills it: latency is
+//   no longer the limit.
+// - One X0 stage serves all TR rows of a block, as on the TPU; X0 (9.4 MB)
+//   stays in L2, but every row block reads it again: 64 / TR bytes from L2
+//   for each byte of P. At TR 64 and 32 that traffic, (1 + 64 / TR) x 906
+//   MB at 4.3-4.7 TB/s out of L2, is what bounds the body; at TR 128 the
+//   gather of 128-byte segments runs at ~73% of the data sheet's rate
+//   (device-only times, H100 80GB HBM3 at 700 W).
+// - Each stage is summed in a fresh tensor-core fragment and folded into
+//   the running sum with f32 adds (see fold); a block owns TR gathered rows
+//   (TR / 16 warps, 16 rows and 64 features each).
+// T1 and K3 (pcache.cu) now share the column split and the slab sum; they
+// differ in the 4-D operand, the rows a block owns, the ring depth and how
+// S is chosen.
 //
 // T3 is T1's body with a compile-time RESIDENT flag. On the TPU,
 // resident_x0 fetches all of X0 into VMEM once; on Hopper X0 (npad x 64
@@ -37,8 +59,10 @@
 // shared memory, so "resident" means resident in the 50 MB L2: X0's copies
 // carry an evict_last policy and P's an evict_first one, so the 906 MB of
 // gathered rows stream past without pushing X0 out, and X0 crosses device
-// memory about once. Without the flag T3 is T1, launched under its own
-// entry; the two variants sum in the same order and are bit-equal.
+// memory about once. S is taken from the RESIDENT-free instance for both,
+// so at one (NJ, TR) the two variants and T1 sum in one order and are
+// bit-equal. NJ names the JAX tool's slabs; the 4-D P is the row-major P's
+// memory, so the body reads npad contiguous columns whatever NJ is.
 //
 // T2: one block owns one 128-column tile of one slab (npad / 128 blocks),
 // walks all R gathered rows in TR-row steps, in order, and keeps the (128,
@@ -67,6 +91,7 @@
 #include <stdint.h>
 
 #include "mma_sync.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
@@ -80,8 +105,9 @@ using igcn::ldsm_x4_t;
 using igcn::mma16816;
 
 constexpr int kDTile = 64;              // features per block
-constexpr int kChunk = 64;              // T1 columns per pipeline stage
+constexpr int kChunk = 64;              // T1 columns a stage, T4 a warp
 constexpr int kLd = 64 + 8;             // padded smem row of a 64-wide tile
+constexpr int kStages = 3;              // T1/T3 ring depth
 constexpr int kColTile = 128;           // T2 columns of P per block
 constexpr int kLdP = kColTile + 8;      // padded smem row of T2's P tile
 constexpr int kT2Threads = 256;         // 8 warps x 16 columns
@@ -147,25 +173,27 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][4],
   }
 }
 
-// T1 and T3: out (R, dpad) = P4[rows] @ X0; block x owns rows [x * tr,
-// x * tr + tr), block y the features [64 y, 64 y + 64). 2 * tr threads.
-// RESIDENT (T3's resident_x0) copies X0 under evict_last and P under
-// evict_first; the arithmetic is the same.
+// T1 and T3: slab y (R, dpad) = P4[rows, columns of split y] @ X0[those
+// rows]; block x owns rows [x * tr, x * tr + tr), block y the stages [y *
+// per_split, y * per_split + per_split) (the last split may hold fewer, or
+// none, and then writes zeros), block z the features [64 z, 64 z + 64).
+// 2 * tr threads. RESIDENT (T3's resident_x0) copies X0 under evict_last
+// and P under evict_first; the arithmetic is the same.
 template <bool RESIDENT>
 __global__ void __launch_bounds__(2 * kMaxTr)
 fused_fwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
-                    const bf16* __restrict__ x0, float* __restrict__ out,
-                    int n, int nj, int tkc, int r_tot, int dpad, int tr) {
+                    const bf16* __restrict__ x0, float* __restrict__ slabs,
+                    int n, int npad, int r_tot, int dpad, int tr,
+                    int per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [2][tr][kLd] gathered rows
-  bf16* sB = sA + 2 * tr * kLd;              // [2][kChunk][kLd] X0 rows
+  bf16* sA = reinterpret_cast<bf16*>(smem);  // [kStages][tr][kLd] P rows
+  bf16* sB = sA + kStages * tr * kLd;        // [kStages][kChunk][kLd] X0
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.x * tr;
-  const int d0 = blockIdx.y * kDTile;
-  const int per_slab = tkc / kChunk;
-  const int n_chunks = nj * per_slab;
-  const size_t npad = (size_t)nj * tkc;
+  const int first = blockIdx.y * per_split;
+  const int n_stages = min(per_split, npad / kChunk - first);
+  const int d0 = blockIdx.z * kDTile;
   uint64_t x_policy = 0, p_policy = 0;
   if constexpr (RESIDENT) {
     x_policy = igcn::l2_evict_last();
@@ -184,12 +212,11 @@ fused_fwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
     a_ok[i] = id >= 0 && id < n;
     a_src[i] = p4 + (size_t)(a_ok[i] ? id : 0) * npad + (c % 8) * 8;
   }
-  // slab j = chunk / per_slab, columns k0 + [0, 64) of it
-  auto load = [&](int stage, int chunk) {
-    const size_t col = (size_t)(chunk / per_slab) * tkc +
-                       (size_t)(chunk % per_slab) * kChunk;
-    bf16* a = sA + stage * tr * kLd;
-    bf16* b = sB + stage * kChunk * kLd;
+  // stage s of this split: columns (first + s) * 64 + [0, 64)
+  auto load = [&](int buf, int s) {
+    const size_t col = (size_t)(first + s) * kChunk;
+    bf16* a = sA + buf * tr * kLd;
+    bf16* b = sB + buf * kChunk * kLd;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = tid + i * nthreads;
@@ -209,30 +236,38 @@ fused_fwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
         cp_async16(dst, src, true);
       }
     }
-    cp_async_commit();
   };
 
+  // the ring: stage s lands in buffer s % kStages; kStages - 1 groups are
+  // in flight when stage s is summed (an empty group past the end keeps
+  // the count)
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_stages) load(s, s);
+    cp_async_commit();
+  }
   float acc[8][4] = {};
-  load(0, 0);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      load((ch + 1) % 2, ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kStages - 2>();
+    // stage s landed for every thread, and every warp is done with stage
+    // s - 1, whose buffer the next load refills
     __syncthreads();
-    const bf16* a = sA + (ch % 2) * tr * kLd;
-    const bf16* b = sB + (ch % 2) * kChunk * kLd;
+    if (s + kStages - 1 < n_stages) {
+      load((s + kStages - 1) % kStages, s + kStages - 1);
+    }
+    cp_async_commit();
+    const bf16* a = sA + (s % kStages) * tr * kLd;
+    const bf16* b = sB + (s % kStages) * kChunk * kLd;
     float part[8][4] = {};
 #pragma unroll
     for (int k0 = 0; k0 < kChunk; k0 += 16) {
       mma_k16<false, kLd>(part, a, b, warp * 16, k0, lane);
     }
     fold(acc, part);
-    __syncthreads();  // the stage is reloaded two chunks later
   }
-  store_tile(acc, out, r0 + warp * 16, r_tot, dpad, d0, lane);
+  cp_async_wait<0>();
+  store_tile(acc, slabs + (size_t)blockIdx.y * r_tot * dpad, r0 + warp * 16,
+             r_tot, dpad, d0, lane);
 }
 
 // One TR-row stage of T2/T4: columns [col0, col0 + 128) of the gathered
@@ -326,28 +361,71 @@ bool bad_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
          tr > kMaxTr || tr % 16;
 }
 
-size_t fwd_smem(int tr) { return (size_t)(2 * tr + 2 * kChunk) * kLd * 2; }
+size_t fwd_smem(int tr) {
+  return (size_t)kStages * (tr + kChunk) * kLd * 2;
+}
 
 size_t bwd_smem(int tr) { return (size_t)2 * tr * (kLdP + kLd) * 2; }
 
+// Blocks of the forward body an SM holds at this TR, as the runtime's
+// occupancy calculator reports it for the RESIDENT-free instance (0 when
+// the query fails).
+int fwd_blocks_per_sm(int tr) {
+  const size_t smem = fwd_smem(tr);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(fused_fwd_4d_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fused_fwd_4d_kernel<false>, 2 * tr, smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+// S, the forward's column splits: the most whose grid (row blocks x S x
+// feature tiles) the card holds in one wave, at least 1 and at most one
+// stage a split.
+int fwd_splits(int r_tot, int npad, int dpad, int tr) {
+  const int tiles = ((r_tot + tr - 1) / tr) * (dpad / kDTile);
+  const int stages = npad / kChunk;
+  int dev = 0, sms = 0;
+  if (tiles < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 1;
+  int s = fwd_blocks_per_sm(tr) * sms / tiles;
+  if (s > stages) s = stages;
+  return s < 1 ? 1 : s;
+}
+
 template <bool RESIDENT>
-int launch_fwd(const void* p4, const void* rows, const void* x0, void* out,
-               int n, int nj, int tkc, int r_tot, int dpad, int tr,
-               void* stream) {
-  if (bad_shape(n, nj, tkc, r_tot, dpad, tr)) return (int)cudaErrorInvalidValue;
+int launch_fwd(const void* p4, const void* rows, const void* x0, void* part,
+               void* out, int n, int nj, int tkc, int r_tot, int dpad, int tr,
+               int splits, void* stream) {
+  const long long npad = (long long)nj * tkc;
+  if (bad_shape(n, nj, tkc, r_tot, dpad, tr) || npad > INT32_MAX ||
+      splits < 1 || splits > npad / kChunk || (splits > 1 && !part))
+    return (int)cudaErrorInvalidValue;
   if (r_tot == 0) return (int)cudaGetLastError();
   const size_t smem = fwd_smem(tr);
   cudaError_t err = cudaFuncSetAttribute(
       fused_fwd_4d_kernel<RESIDENT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((r_tot + tr - 1) / tr, dpad / kDTile);
-  fused_fwd_4d_kernel<RESIDENT><<<grid, 2 * tr, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  const int stages = (int)(npad / kChunk);
+  const int per_split = (stages + splits - 1) / splits;
+  auto s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(splits == 1 ? out : part);
+  dim3 grid((r_tot + tr - 1) / tr, splits, dpad / kDTile);
+  fused_fwd_4d_kernel<RESIDENT><<<grid, 2 * tr, smem, s>>>(
       static_cast<const bf16*>(p4), static_cast<const int*>(rows),
-      static_cast<const bf16*>(x0), static_cast<float*>(out), n, nj, tkc,
-      r_tot, dpad, tr);
-  return (int)cudaGetLastError();
+      static_cast<const bf16*>(x0), dst, n, (int)npad, r_tot, dpad, tr,
+      per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)igcn::sum_splits(static_cast<const float*>(part),
+                               static_cast<float*>(out),
+                               (long long)r_tot * dpad, splits, s);
 }
 
 template <bool TRANS_OUT>
@@ -374,24 +452,50 @@ int launch_bwd(const void* p4, const void* rows, const void* ct, void* dx,
 
 extern "C" {
 
+// Column splits S of the forward body (T1/T3) at this shape: the number of
+// partial (r_tot, dpad) f32 slabs its wrappers allocate (none when 1).
+int igcn_fused_fwd_splits(int r_tot, int npad, int dpad, int tr) {
+  return fwd_splits(r_tot, npad, dpad, tr);
+}
+
+// The forward body's launch at this shape, d padded to a multiple of 64 as
+// the wrappers do: writes grid x (row blocks), grid y (S), grid z (feature
+// tiles), threads a block, shared-memory bytes a block, ring stages, blocks
+// an SM (the runtime's occupancy) and the largest S an entry takes.
+void igcn_fused_fwd_launch_shape(int r_tot, int npad, int d, int tr,
+                                 int* shape) {
+  const int dpad = (d + kDTile - 1) / kDTile * kDTile;
+  shape[0] = (r_tot + tr - 1) / tr;
+  shape[1] = fwd_splits(r_tot, npad, dpad, tr);
+  shape[2] = dpad / kDTile;
+  shape[3] = 2 * tr;
+  shape[4] = (int)fwd_smem(tr);
+  shape[5] = kStages;
+  shape[6] = fwd_blocks_per_sm(tr);
+  shape[7] = npad / kChunk;
+}
+
 // p4 (n, nj, tkc / 128, 128) bf16; rows (r_tot,) int32; x0 (nj * tkc,
-// dpad) bf16; out (r_tot, dpad) f32.
+// dpad) bf16; part (splits, r_tot, dpad) f32 scratch (may be out when
+// splits is 1); out (r_tot, dpad) f32. splits in [1, nj * tkc / 64]:
+// igcn_fused_fwd_splits, or another value to time the choice.
 int igcn_fused_fwd_4d(const void* p4, const void* rows, const void* x0,
-                      void* out, int n, int nj, int tkc, int r_tot, int dpad,
-                      int tr, void* stream) {
-  return launch_fwd<false>(p4, rows, x0, out, n, nj, tkc, r_tot, dpad, tr,
-                           stream);
+                      void* part, void* out, int n, int nj, int tkc,
+                      int r_tot, int dpad, int tr, int splits, void* stream) {
+  return launch_fwd<false>(p4, rows, x0, part, out, n, nj, tkc, r_tot, dpad,
+                           tr, splits, stream);
 }
 
 // T3: igcn_fused_fwd_4d's operands, and resident (0 or 1) for X0 kept in L2.
 int igcn_fused_fwd_tune(const void* p4, const void* rows, const void* x0,
-                        void* out, int n, int nj, int tkc, int r_tot, int dpad,
-                        int tr, int resident, void* stream) {
+                        void* part, void* out, int n, int nj, int tkc,
+                        int r_tot, int dpad, int tr, int splits, int resident,
+                        void* stream) {
   if (resident != 0 && resident != 1) return (int)cudaErrorInvalidValue;
-  return resident ? launch_fwd<true>(p4, rows, x0, out, n, nj, tkc, r_tot,
-                                     dpad, tr, stream)
-                  : launch_fwd<false>(p4, rows, x0, out, n, nj, tkc, r_tot,
-                                      dpad, tr, stream);
+  return resident ? launch_fwd<true>(p4, rows, x0, part, out, n, nj, tkc,
+                                     r_tot, dpad, tr, splits, stream)
+                  : launch_fwd<false>(p4, rows, x0, part, out, n, nj, tkc,
+                                      r_tot, dpad, tr, splits, stream);
 }
 
 // p4 (n, nj, tkc / 128, 128) bf16; rows (r_tot,) int32; ct (r_tot, dpad)

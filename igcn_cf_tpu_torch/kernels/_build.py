@@ -68,12 +68,14 @@ _SIGNATURES = {
     "igcn_gather_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (p, rows, ct, dx, n, npad, r, dpad, stream)
     "igcn_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (p4, rows, x0, out, n, nj, tkc, r, dpad, tr, stream)
-    "igcn_fused_fwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (p4, rows, x0, part, out, n, nj, tkc, r, dpad, tr, splits, stream)
+    "igcn_fused_fwd_4d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (p4, rows, ct, dx, n, nj, tkc, r, dpad, tr, stream)
     "igcn_fused_bwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (p4, rows, x0, out, n, nj, tkc, r, dpad, tr, resident, stream)
-    "igcn_fused_fwd_tune": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (p4, rows, x0, part, out, n, nj, tkc, r, dpad, tr, splits, resident,
+    #  stream)
+    "igcn_fused_fwd_tune": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P),
     # (p4, rows, ct, dxt, n, nj, tkc, r, dpad, tr, stream)
     "igcn_fused_bwd_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (x, idx, out, n, reps, w, row_blocks, bf16, stream)
@@ -198,6 +200,11 @@ def library() -> ctypes.CDLL:
         lib.igcn_gather_fwd_splits.restype = ctypes.c_int
         lib.igcn_t2_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_t2_splits.restype = ctypes.c_int
+        lib.igcn_fused_fwd_splits.argtypes = [ctypes.c_int] * 4
+        lib.igcn_fused_fwd_splits.restype = ctypes.c_int
+        lib.igcn_fused_fwd_launch_shape.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.igcn_fused_fwd_launch_shape.restype = None
         lib.igcn_pair_launch_shape.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.igcn_pair_launch_shape.restype = None

@@ -28,11 +28,15 @@ that K3/K4 read, so row E runs on the very tensor F4 and G4 read.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
 from igcn_cf_tpu_torch.kernels import _build
-from igcn_cf_tpu_torch.kernels.pcache import _d_padded, cached_prop
+from igcn_cf_tpu_torch.kernels.bitpack import pad_to
+from igcn_cf_tpu_torch.kernels.pcache import _TILE, _d_padded, cached_prop
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
@@ -103,18 +107,70 @@ def _launch_4d(entry, kid, p4, rows, x, out_rows, tr, *extra,
     return out[: x.shape[1]] if transposed else out[:, : x.shape[1]]
 
 
+# the forward body's launch shape, as igcn_fused_fwd_launch_shape writes it
+FWD_SHAPE_KEYS = ("row_blocks", "splits", "d_tiles", "threads", "smem_bytes",
+                  "stages", "blocks_per_sm", "max_splits")
+
+
+def fwd_splits(r: int, npad: int, d: int, tr: int = TR) -> int:
+    """Column splits S of T1/T3's body at this shape on the current card:
+    the number of partial (R, d) f32 slabs their wrappers allocate (none
+    when 1)."""
+    return _fwd_splits(torch.cuda.current_device(), r, npad, pad_to(d, _TILE),
+                       tr)
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_splits(device: int, r: int, npad: int, dpad: int, tr: int) -> int:
+    # the runtime's occupancy query costs host time that events around a
+    # call would count, so each shape asks once
+    with torch.cuda.device(device):
+        return _build.library().igcn_fused_fwd_splits(r, npad, dpad, tr)
+
+
+def fwd_launch_shape(r: int, npad: int, d: int, tr: int = TR) -> dict:
+    """T1/T3's launch at this shape: ``FWD_SHAPE_KEYS`` -> int."""
+    shape = (ctypes.c_int * len(FWD_SHAPE_KEYS))()
+    _build.library().igcn_fused_fwd_launch_shape(r, npad, d, tr, shape)
+    return dict(zip(FWD_SHAPE_KEYS, shape))
+
+
+def _fwd_launch(entry, kid, p4, rows, x0, tr, *extra, splits=None):
+    """Launch forward-body entry ``entry`` (T1 or T3) and count it under
+    ``kid``: S column splits (``fwd_splits`` unless given), their partial
+    slabs summed in order. ``extra`` ints follow ``splits``."""
+    n, nj, sub, _ = p4.shape
+    npad = nj * sub * 128
+    _check_4d(p4, rows, x0, npad, "x0", tr)
+    r, d = rows.shape[0], x0.shape[1]
+    xb = _d_padded(x0)
+    dpad = xb.shape[1]
+    if splits is None:
+        splits = _fwd_splits(p4.device.index, r, npad, dpad, tr)
+    if not 1 <= splits <= npad // 64:
+        raise ValueError(f"splits {splits} must be in [1, {npad // 64}]")
+    out = torch.empty((r, dpad), dtype=torch.float32, device=p4.device)
+    part = out if splits == 1 else torch.empty((splits, r, dpad),
+                                               dtype=torch.float32,
+                                               device=p4.device)
+    _build.launch(entry, p4, rows.to(torch.int32).contiguous(), xb, part, out,
+                  n, nj, sub * 128, r, dpad, tr, splits, *extra)
+    _build.LAUNCHES[kid] += 1
+    return out if dpad == d else out[:, :d]
+
+
 def fused_fwd_4d(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
-                 tr: int = TR) -> torch.Tensor:
+                 tr: int = TR, splits: int | None = None) -> torch.Tensor:
     """T1: (R, d) f32 = P4[rows] @ X0 for P4 (n, NJ, sub, 128) bf16 and X0
-    (NJ * sub * 128, d) taken as bf16; one block per ``tr`` gathered rows
-    walks the NJ slabs in order. CUDA tensors launch ``csrc/pcache_4d.cu``;
-    CPU tensors take the plain version."""
+    (NJ * sub * 128, d) taken as bf16. A block owns ``tr`` gathered rows
+    and one of S column ranges (``fwd_splits``; ``splits`` overrides it
+    only to time the choice); the S partial slabs are summed in order,
+    so two launches are bit-equal. CUDA tensors launch
+    ``csrc/pcache_4d.cu``; CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return fused_fwd_4d_plain(p4, rows, x0)
-    npad = p4.shape[1] * p4.shape[2] * 128
-    _check_4d(p4, rows, x0, npad, "x0", tr)
-    return _launch_4d("igcn_fused_fwd_4d", "T1", p4, rows, x0, rows.shape[0],
-                      tr)
+    return _fwd_launch("igcn_fused_fwd_4d", "T1", p4, rows, x0, tr,
+                       splits=splits)
 
 
 def fused_bwd_4d(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,

@@ -15,10 +15,13 @@ the gathered rows (R * npad * 2 B) and the product's FLOP:
   bwd_t nj= tr=           T4 for TR 128, 64 and 32
 
 then the card's roofline for one pass. No row is skipped: the JAX tool
-left out combinations over 15 MB of TPU VMEM, but a T3 block holds (2 TR +
-128) x 72 bf16 of shared memory and a T4 block 2 TR x 208, at most 106 KB
-at TR 128 whatever NJ is, under the card's 232,448 bytes. A row the kernel
-refuses raises and ends the run.
+left out combinations over 15 MB of TPU VMEM, but a T3 block holds 3 (TR +
+64) x 72 bf16 of shared memory (its three-stage ring) and a T4 block 2 TR x
+208, at most 106 KB at TR 128 whatever NJ is, under the card's 232,448
+bytes. On the card NJ names the slabs only: T3 reads the same contiguous
+columns at NJ 4 and 2, split in S column ranges by TR
+(``microbench_pcache.fwd_splits``). A row the kernel refuses raises and
+ends the run.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.tools.microbench_pcache import (
-    _check_4d, _launch_4d, fused_fwd_4d_plain, random_inputs, relerr, to4d)
+    _check_4d, _fwd_launch, _launch_4d, fused_fwd_4d_plain, random_inputs,
+    relerr, to4d)
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
 TR = 128
@@ -52,17 +56,17 @@ def bwd_t_plain(p4: torch.Tensor, rows: torch.Tensor,
 
 def fwd_tune(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
              tr: int = TR, resident_x0: bool = False) -> torch.Tensor:
-    """T3: (R, d) f32 = P4[rows] @ X0, X0 (npad, d) taken as bf16; one block
-    per ``tr`` gathered rows walks the NJ slabs in order. ``resident_x0``
-    keeps X0 in L2 (evict_last) while P streams past (evict_first); both
-    variants are bit-equal to T1. CUDA tensors launch
+    """T3: (R, d) f32 = P4[rows] @ X0, X0 (npad, d) taken as bf16, through
+    T1's body: a block owns ``tr`` gathered rows and one of S column ranges
+    (``microbench_pcache.fwd_splits``), the partial slabs summed in order.
+    ``resident_x0`` keeps
+    X0 in L2 (evict_last) while P streams past (evict_first); both variants
+    are bit-equal to T1 at the same ``tr``. CUDA tensors launch
     ``csrc/pcache_4d.cu``; CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return fwd_tune_plain(p4, rows, x0)
-    npad = p4.shape[1] * p4.shape[2] * 128
-    _check_4d(p4, rows, x0, npad, "x0", tr)
-    return _launch_4d("igcn_fused_fwd_tune", "T3", p4, rows, x0,
-                      rows.shape[0], tr, int(bool(resident_x0)))
+    return _fwd_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, tr,
+                       int(bool(resident_x0)))
 
 
 def bwd_t(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,

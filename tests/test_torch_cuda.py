@@ -493,6 +493,109 @@ def test_tune_kernels_match_plain_and_t1_t2(cuda, n, npad, nj, r, d, tr, dup):
     assert torch.equal(got_t, mpt.bwd_t(p4, rows, ct, tr))  # one writer
 
 
+# -- the redesigned forward body of T1/T3: column splits summed in order ----
+
+
+def _fwd_case(cuda, n, npad, r, d, seed):
+    """P (n, npad) bf16, rows with ids outside [0, n) among them, X0 (npad,
+    d) bf16, and the plain result with those rows zero."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=gen, device=cuda)
+    bad = torch.tensor([-1, n, n + 7, -n], device=cuda)
+    rows[torch.arange(4, device=cuda) * (r // 4)] = bad
+    x0 = torch.randn((npad, d), generator=gen, device=cuda).to(torch.bfloat16)
+    ok = (rows >= 0) & (rows < n)
+    want = mpc.fused_fwd_4d_plain(mpc.to4d(p, 1), rows.clamp(0, n - 1), x0)
+    want[~ok] = 0
+    return p, rows, x0, want
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tr", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("nj", [1, 2, 4])
+def test_fwd_body_matches_plain_at_every_split(cuda, nj, tr, d):
+    """T1 and T3's entry (both variants) at S = 1, the chosen S and the largest S
+    against the plain version, R not a multiple of TR and ids outside [0, n)
+    reading as zeros; one count a call; two launches bit-equal; T3's wrapper
+    bit-equal to T1 at the chosen S; T1 against K3 on the same row-major P."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+
+    n, npad, r = 900, 2048, 3 * tr + 5
+    p, rows, x0, want = _fwd_case(cuda, n, npad, r, d, nj * 1000 + tr + d)
+    p4 = mpc.to4d(p, nj)
+    shape = mpc.fwd_launch_shape(r, npad, d, tr)
+    chosen = mpc.fwd_splits(r, npad, d, tr)
+    assert shape["splits"] == chosen and shape["max_splits"] == npad // 64
+    for splits in sorted({1, chosen, shape["max_splits"]}):
+        before = dict(_build.LAUNCHES)
+        t1 = mpc.fused_fwd_4d(p4, rows, x0, tr, splits)
+        t3 = [mpc._fwd_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, tr, res,
+                              splits=splits) for res in (0, 1)]
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["T1"] == before["T1"] + 1
+        assert _build.LAUNCHES["T3"] == before["T3"] + 2
+        assert t1.shape == (r, d)
+        _assert_close_scaled(t1, want)
+        assert all(torch.equal(t1, got) for got in t3)
+        assert torch.equal(t1[~((rows >= 0) & (rows < n))], torch.zeros(4, d, device=cuda))
+    t1 = mpc.fused_fwd_4d(p4, rows, x0, tr)
+    assert torch.equal(t1, mpc.fused_fwd_4d(p4, rows, x0, tr))
+    assert all(torch.equal(mpt.fwd_tune(p4, rows, x0, tr, res), t1)
+               for res in (False, True))
+    _assert_close_scaled(t1, pcache.gather_fwd(p, rows, x0))
+
+
+@pytest.mark.parametrize("nj", [4, 2])
+def test_tune_rows_are_bit_equal_to_t1(cuda, nj):
+    """Every (TR, resident_x0) row of the tune tool's grid, at each of its NJ:
+    T3 bit-equal to T1 at that TR, at the default S."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+
+    n, npad, r = 1500, 4096, 700
+    p, rows, x0, want = _fwd_case(cuda, n, npad, r, 64, nj)
+    p4 = mpc.to4d(p, nj)
+    for tr, res in mpt.FWD_GRID:
+        t1 = mpc.fused_fwd_4d(p4, rows, x0, tr)
+        assert torch.equal(mpt.fwd_tune(p4, rows, x0, tr, res), t1), (tr, res)
+        _assert_close_scaled(t1, want)
+
+
+def test_fwd_splits_fill_the_card_in_one_wave(cuda):
+    """S gives several blocks an SM at every TR of the tune tool's sweep, at
+    the tool's shape, and never more blocks than one wave holds."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tr in (128, 64, 32):
+        s = mpc.fwd_launch_shape(mpc.R, mpc.NPAD, mpc.D, tr)
+        blocks = s["row_blocks"] * s["splits"] * s["d_tiles"]
+        assert s["blocks_per_sm"] >= 1 and s["splits"] > 1, s
+        assert blocks <= s["blocks_per_sm"] * sms, s
+        assert blocks >= sms, s
+    assert mpc.fwd_splits(0, 2048, 64, 64) == 1
+
+
+def test_fwd_wrappers_refuse_bad_splits(cuda):
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    p4 = torch.zeros((100, 2, 4, 128), dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(10, dtype=torch.int64, device=cuda)
+    x0 = torch.zeros((1024, 64), device=cuda)
+    before = dict(_build.LAUNCHES)
+    for splits in (0, 17):  # 1,024 columns: 16 stages
+        with pytest.raises(ValueError, match="splits"):
+            mpc.fused_fwd_4d(p4, rows, x0, 64, splits)
+        with pytest.raises(ValueError, match="splits"):
+            mpc._fwd_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, 64, 1,
+                            splits=splits)
+    assert _build.LAUNCHES == before
+
+
 @pytest.mark.parametrize("n,dtype,reps,shift", [
     (512, torch.float32, 50, 0),     # the gather tool's cases
     (2048, torch.float32, 50, 0),

@@ -113,6 +113,23 @@ def test_tune_plain_versions_are_the_4d_functions(rng):
                                mpc.fused_bwd_4d(p4, rows, ct).T)
 
 
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_fwd_wrappers_take_splits_on_the_cpu(rng, splits):
+    """T1 takes the column splits S (T3 always its chosen S); on the CPU both
+    run the plain version whatever S is, and launch nothing."""
+    n, nj, npad, d = 50, 2, 512, 8
+    p4 = mpc.to4d(torch.as_tensor(rng.standard_normal((n, npad)).astype(
+        np.float32)).to(torch.bfloat16), nj)
+    rows = torch.as_tensor(rng.integers(0, n, 20))
+    x0 = torch.as_tensor(rng.standard_normal((npad, d)).astype(np.float32))
+    before = dict(_build.LAUNCHES)
+    want = mpc.fused_fwd_4d_plain(p4, rows, x0)
+    assert torch.equal(mpc.fused_fwd_4d(p4, rows, x0, 32, splits), want)
+    for res in (False, True):
+        assert torch.equal(mpt.fwd_tune(p4, rows, x0, 32, res), want)
+    assert _build.LAUNCHES == before
+
+
 def test_tune_correctness_runs_on_the_cpu_plain_versions():
     before = dict(_build.LAUNCHES)
     err = mpt.correctness("cpu")
