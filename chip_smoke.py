@@ -41,8 +41,10 @@ Phases, each fatal on failure:
      Then a few steps on the recompute engine. Every kernel K1-K8 must
      launch during this phase.
   6. train checks -- K3/K4 at R = 6,144 on the real P against their plain
-     versions; a digest of K3's output on a seeded random P (column splits
-     summed by the shared split_sum.cuh pass); K5 at the validation eval's shape (29,858 users x 45,056
+     versions, with their launch shapes and their event and device-only
+     times, K4 bit-equal over two launches; a digest of K3's output on a
+     seeded random P (column splits summed by the shared split_sum.cuh
+     pass), with K3 bit-equal to T1 at TR 128 on that P; K5 at the validation eval's shape (29,858 users x 45,056
      padded items, trained representations, val exclusion) against its plain
      version, with NDCG@20 of both id sets; one train step on each engine
      through the kernels against the same step through the plain versions
@@ -66,7 +68,8 @@ Phases, each fatal on failure:
      feature aggregation (old-path, bbt-drop, premask) on the full B with
      the same draws, outputs and gradients; T1/T2 (the 4-D fused gather
      kernels) on the tool's full-shape random P against their plain
-     versions and against K3/K4 on the same P; T1's launch shape, its time
+     versions and against K3/K4 on the same P (T1 bit-equal to K3, its
+     NJ-free case); T1's launch shape, its time
      at column splits S 1, 2, 4, the chosen S and the largest, and its
      device-only time by torch.profiler; on that P too, T3 (the tune
      tool's forward, X0 per stage and X0 kept in L2) against its plain
@@ -145,8 +148,8 @@ KERNELS = {
            "igcn_cf_tpu/kernels/bitpack.py:498"),
     "K2": ("bbt_pair t2: y2t = (B^T @ X2)^T", "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
            "igcn_cf_tpu/kernels/bitpack.py:529"),
-    "K3": ("cached_prop fwd: P[rows] @ X0", "igcn_cf_tpu_torch/csrc/pcache.cu",
-           "igcn_cf_tpu/kernels/pcache.py:246"),
+    "K3": ("cached_prop fwd: P[rows] @ X0, T1's body at TR 128",
+           "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "igcn_cf_tpu/kernels/pcache.py:246"),
     "K4": ("cached_prop bwd: P[rows]^T @ ct", "igcn_cf_tpu_torch/csrc/pcache.cu",
            "igcn_cf_tpu/kernels/pcache.py:339"),
     "K5": ("fused score+mask+top-k", "igcn_cf_tpu_torch/csrc/fused_topk.cu",
@@ -911,8 +914,22 @@ def phase_train(full):
 # -- phase 6: train checks against the plain versions ---------------------------
 
 
+def launch_line(kid: str, shape: dict) -> str:
+    """K3's or K4's launch shape (``pcache.gather_launch_shape``) as a log
+    fragment."""
+    grid = ((shape["grid_x"], shape["splits"], shape["d_tiles"]) if kid == "K3"
+            else (shape["grid_x"], shape["d_tiles"]))
+    split = (f", S {shape['splits']} of at most {shape['max_splits']}"
+             if kid == "K3" else ", no split")
+    return (f"{kid} grid {grid} x {shape['threads']} threads, "
+            f"{shape['smem_bytes']} B shared, {shape['stages']} stages, "
+            f"{shape['blocks_per_sm']} blocks an SM{split}")
+
+
 def check_gather(trainer):
-    """K3/K4 at R = 3 x 2048 batch rows on the real P."""
+    """K3/K4 at R = 3 x 2048 batch rows on the real P: against their plain
+    versions, with their launch shapes, event and device-only times; K4
+    deterministic; K3's digest, bit-equal to T1 at TR 128 on its P."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import pcache
@@ -921,12 +938,16 @@ def check_gather(trainer):
     p = trainer.buffers["pcache"]
     (users, pos, neg), _, _ = trainer.sample_step()
     n_users = trainer.model.n_users
-    rows = torch.cat([users, n_users + pos, n_users + neg])
+    # int32, as cached_prop hands the rows to both kernels
+    rows = torch.cat([users, n_users + pos, n_users + neg]).to(torch.int32)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x0b = torch.randn((p.shape[1], 64), generator=gen, device="cuda").to(torch.bfloat16)
     ctb = torch.randn((rows.shape[0], 64), generator=gen, device="cuda").to(torch.bfloat16)
     out = {}
     r, npad = rows.shape[0], p.shape[1]
+    shapes = {kid: pcache.gather_launch_shape(kid, r, npad, 64) for kid in ("K3", "K4")}
+    log(f"# K3/K4 launch at R={r}, npad={npad}, d=64: "
+        f"{launch_line('K3', shapes['K3'])}; {launch_line('K4', shapes['K4'])}")
     for name, kern, plain, x in (("K3", pcache.gather_fwd, pcache.gather_fwd_plain, x0b),
                                  ("K4", pcache.gather_bwd, pcache.gather_bwd_plain, ctb)):
         got, want = kern(p, rows, x), plain(p, rows, x)
@@ -937,34 +958,61 @@ def check_gather(trainer):
                      "plain_ms": cuda_ms(lambda: plain(p, rows, x), reps=5),
                      "library_ms": gather_library_ms(p, rows, x, name == "K4"),
                      **gather_bound(r, npad, 64, x.numel() * 2, got.numel() * 4)}
+        dev = device_ms(lambda: kern(p, rows, x))
         log(f"# {name} R={r} on P {tuple(p.shape)}: max_abs_err "
-            f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms vs plain "
-            f"{out[name]['plain_ms']:.4f} ms, index_select + bf16 matmul "
+            f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms by events, "
+            f"{dev:.4f} ms on the device (torch.profiler, body and any slab sum) "
+            f"vs plain {out[name]['plain_ms']:.4f} ms, index_select + bf16 matmul "
             f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({out[name]['bound_by']})")
-    again = pcache.gather_bwd(p, rows, ctb)
-    if not torch.equal(again, pcache.gather_bwd(p, rows, ctb)):
-        raise AssertionError("K4 is not deterministic")
-    log(f"# K3 digest on a seeded 4096 x 4096 P, R=6,144, d=64: {k3_digest()}")
+        if name == "K4" and not torch.equal(got, kern(p, rows, x)):
+            raise AssertionError("K4 is not deterministic")
+    del got, want
+    log("# K4 bit-equal over two launches at the training slice")
+    log(f"# K3 digest on a seeded 4096 x 4096 P, R=6,144, d=64: "
+        f"{k3_digest_equal_to_t1()}; bit-equal to T1 (TR 128) on the same P "
+        f"at NJ 1, 2 and 4")
     return out
 
 
-def k3_digest() -> str:
-    """sha256 of K3's output on a seeded random P (4,096 x 4,096 bf16,
-    R = 6,144 rows with repeats, d = 64): a split shape, so the digest
-    covers the split sum; equal digests from two trees mean bit-equal K3."""
-    import hashlib
-
+def k3_digest_inputs():
+    """The seeded random P (4,096 x 4,096 bf16), rows (R = 6,144 with
+    repeats) and X0 (d = 64) of K3's digest."""
     import torch
-
-    from igcn_cf_tpu_torch.kernels import pcache
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     p = torch.randn((4096, 4096), generator=gen, device="cuda").to(torch.bfloat16)
     rows = torch.randint(0, 4096, (6144,), generator=gen, device="cuda")
     x0 = torch.randn((4096, 64), generator=gen, device="cuda").to(torch.bfloat16)
-    out = pcache.gather_fwd(p, rows, x0).contiguous().cpu()
+    return p, rows, x0
+
+
+def k3_digest() -> str:
+    """sha256 of K3's output on ``k3_digest_inputs``: a split shape, so the
+    digest covers the split sum; equal digests from two trees mean
+    bit-equal K3."""
+    import hashlib
+
+    from igcn_cf_tpu_torch.kernels import pcache
+
+    out = pcache.gather_fwd(*k3_digest_inputs()).contiguous().cpu()
     return hashlib.sha256(out.numpy().tobytes()).hexdigest()
+
+
+def k3_digest_equal_to_t1() -> str:
+    """K3's digest, once T1 (TR 128) on the digest's P has been found
+    bit-equal to K3 at NJ 1, 2 and 4."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import pcache
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    p, rows, x0 = k3_digest_inputs()
+    k3 = pcache.gather_fwd(p, rows, x0)
+    for nj in (1, 2, 4):
+        if not torch.equal(mpc.fused_fwd_4d(mpc.to4d(p, nj), rows, x0, 128), k3):
+            raise AssertionError(f"K3 differs from T1 at TR 128, NJ {nj}")
+    return k3_digest()
 
 
 def check_eval_topk(trainer, name):
@@ -1213,7 +1261,8 @@ def check_dropped_pair(rng, full):
 def check_fused_4d(inputs):
     """T1/T2 on the tool's full-shape random P (``inputs``, from
     ``microbench_pcache.random_inputs``) against their plain versions and
-    against K3/K4 on the same (row-major) P; T2 deterministic."""
+    against K3/K4 on the same (row-major) P: T1 bit-equal to K3, which
+    runs its body at TR 128; T2 deterministic."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import pcache
@@ -1236,6 +1285,8 @@ def check_fused_4d(inputs):
         err = assert_close_scaled(got, want)
         ref_err = assert_close_scaled(other, want)
         diff = assert_close_scaled(got, other)
+        if name == "T1" and not torch.equal(got, other):
+            raise AssertionError("T1 (TR 128) differs from K3, its NJ-free case")
         out[name] = {"max_abs_err": err,
                      "ms": cuda_ms(lambda: kern(p4, rows, x, mpc.TR)),
                      "plain_ms": cuda_ms(lambda: plain(p4, rows, x), reps=5),

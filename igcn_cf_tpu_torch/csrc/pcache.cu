@@ -1,274 +1,280 @@
-// K3 and K4: the propagation cache's gather-matmul pair, forward and
-// backward of reps = P[rows] @ X0.
+// K4: the propagation cache's backward gather-matmul, dX0 = P[rows]^T @ ct.
+// K3, its forward (reps = P[rows] @ X0), is the NJ-free case of T1's body:
+// its C entry igcn_gather_fwd sits beside that body in pcache_4d.cu.
 //
-// Replaces the TPU kernels igcn_cf_tpu/kernels/pcache.py::_fused_fwd (K3)
-// and ::_fused_bwd (K4):
+// Replaces the TPU kernel igcn_cf_tpu/kernels/pcache.py::_fused_bwd (K4;
+// K3 replaces ::_fused_fwd):
 //
-//   K3  reps (R, d)  = P[rows] @ X0        P (n, npad) bf16, X0 (npad, d) bf16
-//   K4  dX0 (npad, d) = P[rows]^T @ ct     ct (R, d) bf16; duplicate rows sum
+//   K4  dX0 (npad, d) = P[rows]^T @ ct    P (n, npad) bf16, ct (R, d) bf16;
+//                                          duplicate rows sum
 //
-// both with f32 sums and without ever writing P[rows] to device memory. P
-// is stored row-major; the JAX package's 4-D slab layout and its 4096-column
+// with f32 sums and without ever writing P[rows] to device memory. P is
+// stored row-major; the JAX package's 4-D slab layout and its 4096-column
 // alignment existed only for the TPU's DMA engine.
 //
-// What bounds them on the H100. At the training slice R = 3 * 2048 = 6,144
+// What bounds it on the H100. At the training slice R = 3 * 2048 = 6,144
 // rows of P (npad = 70,912 columns) are 871 MB of bf16 per pass: a 0.26 ms
-// stream at the data sheet's 3.35 TB/s, and 2*R*npad*d = 5.6e10 FLOP, which
-// FP32 FMAs (67 TFLOP/s) would need ~0.8 ms for. So both kernels multiply on
-// the tensor cores, with warp-level mma.sync m16n8k16 (bf16 in, f32
-// accumulate): the simplest route onto them, at 16x the FMA rate, which
-// leaves the P stream as the bound. No wgmma or TMA in this version.
-//
-// Shared design. A block has 4 warps and computes a 64 x 64 output tile
-// (each warp 16 rows x 64 columns: 8 mma n-tiles, 32 f32 accumulators per
-// thread). The contraction runs in 64-deep chunks through a 2-stage
-// cp.async ring in shared memory; each 64-element smem row is padded by 8
-// bf16 so the ldmatrix row addresses of a warp fall in distinct banks. Rows
-// of P are gathered by the block itself (it loads its row ids), 16 B per
-// thread per copy, a whole 128 B row segment per 8 threads. A row id
-// outside [0, n) and a row past R read as zeros.
-//
-// K3: grid (row tiles, split, d tiles). R = 6,144 gives only 96 row tiles,
-// too few for 132 SMs, so the npad columns are split in S ranges (S from
-// igcn_gather_fwd_splits); each split writes its own partial (R, d) slab
-// and a second small kernel (split_sum.cuh) sums the slabs in split order.
-// No atomics: the result is the same on every run.
-//
-// K4: contracts over the R gathered rows, which on the TPU was a sequential
-// grid axis. Here each block OWNS one 64-column tile of dX0 and walks all R
-// rows in order, 64 at a time: every output has one writer and one
-// summation order, so two launches are bit-equal, and duplicate row ids
-// (users repeat in a batch, items across pos and neg) simply add up. P is
-// symmetric, so the gathered ROWS are the needed columns of P^T; the A
-// operand is the transposed smem tile, read with ldmatrix.trans.
+// stream at the data sheet's 3.35 TB/s, against 2 * R * npad * d = 5.6e10
+// FLOP, 0.057 ms on the tensor cores (warp-level mma.sync m16n8k16, bf16
+// in, f32 sums). So the bound is the gather of P, and beside it what
+// crosses L2 to the SMs: a block that owns W columns of dX0 reads the
+// whole ct stream again, 64 / W bytes of ct from L2 for each byte of P.
+// The first K4 owned 64 columns (one ct byte a P byte: ~1.74 GB out of L2
+// at 4.3-4.7 TB/s, which is where it sat) and ran 1,108 blocks of 6 an SM,
+// 1.4-2 waves ending part-full. The design:
+// - A block owns W = 320 columns of one 64-feature tile and walks its rows
+//   in 16-row stages: ct costs a fifth of P out of L2, and each gathered
+//   row is one 640-byte run (five whole 128-byte lines) per block.
+// - The whole output in registers in one wave: at the training slice it is
+//   70,912 x 64 f32 = 18 MB, over half of the SMs' register files. A
+//   block of 10 warps holds its 320 x 64 sums (a warp 32 columns x 64
+//   features, 64 f32 sums a thread, 96 registers), 2 blocks an SM: 264
+//   slots for the 222 column tiles. The rows walk in the same order in
+//   every block, so all blocks read one row of P at about the same time.
+//   (Tiles of 256 columns at 3 blocks an SM, and of 384 at 2, ran 3-7%
+//   slower on the card.)
+// - A 5-stage cp.async ring of 16-row P and ct stages with one barrier a
+//   stage keeps four stages (40 KB of P a block, ~9 MB across the card) in
+//   flight: finer and deeper than a 3-stage ring of 32-row stages in the
+//   same shared memory, which ran ~7% slower. The row ids travel four
+//   stages ahead of the copies that use them, in a small shared-memory
+//   ring filled by cp.async inside the same groups, so no copy waits on a
+//   dependent load of rows[r] from device memory. The id ring is 2 x 4
+//   stages deep, so the copies that fill it never land in a slot another
+//   warp may still be reading. L2 eviction hints and an L2::256B prefetch
+//   of P were no faster.
+// - No split of the rows: at every npad the port builds (70,912 for the
+//   Gowalla slice, more for Yelp and Amazon) the column tiles alone fill
+//   the card, and splits of the 6,144 rows in 2 or 4 ranges, each summed
+//   from an f32 slab, ran slower there.
+// - Each k16 step (a stage's 16 rows) is summed in a fresh 4-register
+//   fragment and added into the running f32 sums with the CUDA cores'
+//   round-to-nearest adds, as T1-T4 fold theirs (pcache_4d.cu, fold). One
+//   tensor-core accumulator carried over the 384 k16 steps of R = 6,144
+//   drifted from the f32 reference by over 1e-3 on random N(0, 1) P and ct
+//   (H100 80GB HBM3), past the gather tolerance. With 64 columns a warp
+//   (128 sums a thread) the fold's registers spilled past the cap of 2
+//   blocks an SM; 32 columns a warp leave room for it.
+// Every output has one writer and one summation order (rows in order), no
+// atomics: two launches are bit-equal, and duplicate row ids (users repeat
+// in a batch, items across pos and neg) simply add up. P is symmetric, so
+// the gathered ROWS are the needed columns of P^T; the A operand is the
+// transposed shared tile, read with ldmatrix.trans. A row id outside
+// [0, n) and a row past R read as zeros; npad is a multiple of 64, so a
+// warp's 32 columns of the last tile are all inside P or all outside.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sync.cuh"
-#include "split_sum.cuh"
 
 namespace {
-
-constexpr int kTile = 64;            // output rows and columns of a block
-constexpr int kChunk = 64;           // contraction depth per pipeline stage
-constexpr int kLd = kChunk + 8;      // padded smem row, in bf16
-constexpr int kThreads = 128;        // 4 warps
-constexpr int kCopies = kTile * kChunk / 8 / kThreads;  // 16 B copies/thread
-constexpr int kTargetBlocks = 4 * 132;  // K3 blocks to aim for
 
 using igcn::bf16;
 using igcn::cp_async16;
 using igcn::cp_async_commit;
 using igcn::cp_async_wait;
-using igcn::ldsm_x4;
 using igcn::ldsm_x4_t;
 using igcn::mma16816;
 
-// One 64-deep chunk: acc (16 x 64 per warp) += A (16 x 64) @ B (64 x 64),
-// with B stored [k][n] in sB. A_TRANS: A(m, k) is sA[k][m] (K4) instead of
-// sA[m][k] (K3).
-template <bool A_TRANS>
-__device__ __forceinline__ void mma_chunk(float (&acc)[8][4],
-                                          const bf16 (*sA)[kLd],
-                                          const bf16 (*sB)[kLd], int warp,
-                                          int lane) {
-  const int m0 = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < kChunk; kk += 16) {
-    uint32_t a[4];
-    if (A_TRANS) {
-      ldsm_x4_t(a, &sA[kk + (lane % 8) + (lane / 16) * 8]
-                      [m0 + ((lane / 8) % 2) * 8]);
-    } else {
-      ldsm_x4(a, &sA[m0 + (lane % 16)][kk + (lane / 16) * 8]);
-    }
-#pragma unroll
-    for (int np = 0; np < kTile / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, &sB[kk + (lane % 16)][np * 16 + (lane / 16) * 8]);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
+constexpr int kDTile = 64;                 // features per block
+constexpr int kWarpCols = 32;              // columns of dX0 a warp owns
+constexpr int kWarps = 10;
+constexpr int kThreads = kWarps * 32;
+constexpr int kCols = kWarps * kWarpCols;  // 320 columns a block
+constexpr int kRows = 16;                  // gathered rows a stage
+constexpr int kStages = 5;                 // ring depth
+constexpr int kAhead = kStages - 1;        // stages in flight
+// stages of row ids in smem: load(t) reads slot t and fills slot t + kAhead
+// (mod 2 kAhead), which neither the prologue's loads (slots 0 .. kAhead - 1,
+// no barrier between them) nor the loop's (one barrier a stage) read while
+// it may run
+constexpr int kIdRing = 2 * kAhead;
+constexpr int kLdP = kCols + 8;            // padded smem row of P, in bf16
+constexpr int kLdC = kDTile + 8;           // padded smem row of ct
+constexpr int kMinBlocks = 2;              // blocks an SM the design needs
+constexpr int kStageBytes = kRows * (kLdP + kLdC) * 2;
+constexpr int kSmem = kStages * kStageBytes + kIdRing * kRows * 4;
+
+// Copy `bytes` (0-16) from device memory to shared memory and zero the rest
+// of the 16; with 0 bytes gmem is not read.
+__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem,
+                                             int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
 }
 
-// K3: part[split] (R, dpad) = P[rows, k range of split] @ X0[k range].
-__global__ void __launch_bounds__(kThreads)
-gather_fwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
-                  const bf16* __restrict__ x0, float* __restrict__ part,
-                  int n, int npad, int r_tot, int dpad, int k_per_split) {
-  __shared__ __align__(16) bf16 sA[2][kTile][kLd];
-  __shared__ __align__(16) bf16 sB[2][kChunk][kLd];
+// dx (npad, dpad) = P[rows]^T @ ct. Block x owns the columns [320 x,
+// 320 x + 320), block y the features [64 y, 64 y + 64); warp w owns the
+// columns 320 x + 32 w + [0, 32).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
+                  const bf16* __restrict__ ct, float* __restrict__ dx,
+                  int n, int npad, int r_tot, int dpad) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sP = reinterpret_cast<bf16*>(smem);  // [kStages][kRows][kLdP]
+  bf16* sC = sP + kStages * kRows * kLdP;    // [kStages][kRows][kLdC]
+  int* sId = reinterpret_cast<int*>(sC + kStages * kRows * kLdC);  // [kIdRing][kRows]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.x * kTile;
-  const int k_begin = blockIdx.y * k_per_split;
-  const int k_end = min(npad, k_begin + k_per_split);
-  const int d0 = blockIdx.z * kTile;
-  const int n_chunks = (k_end - k_begin + kChunk - 1) / kChunk;
+  const int col0 = blockIdx.x * kCols;
+  const int n_stages = (r_tot + kRows - 1) / kRows;
+  const int d0 = blockIdx.y * kDTile;
 
-  // this thread's copies: tile row c / 8, 16-byte column c % 8
-  const bf16* a_src[kCopies];
-  bool a_ok[kCopies];
+  // the ids of stage t: 4 copies of 4 ids by threads j < 4, zero past r_tot
+  // (those rows are masked by their index, not by the id)
+  auto load_ids = [&](int t, int j) {
+    const int r = t * kRows + 4 * j;
+    const int bytes = min(16, max(0, 4 * (r_tot - r)));
+    cp_async16_n(sId + (t % kIdRing) * kRows + 4 * j,
+                 rows + (bytes ? r : 0), bytes);
+  };
+  // stage t into ring buffer t % kStages: rows 16 t + [0, 16) of P
+  // (columns col0 + [0, 320)) and of ct (features d0 + [0, 64)); and the ids
+  // of stage t + kAhead, which the copies of stage t + kAhead read
+  auto load = [&](int t) {
+    const int buf = t % kStages;
+    const int rb = t * kRows;
+    const int* ids = sId + (t % kIdRing) * kRows;
+    bf16* sp = sP + buf * kRows * kLdP;
+    bf16* sc = sC + buf * kRows * kLdC;
 #pragma unroll
-  for (int i = 0; i < kCopies; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = r0 + c / 8;
-    const int id = r < r_tot ? rows[r] : -1;
-    a_ok[i] = id >= 0 && id < n;
-    a_src[i] = p + (size_t)(a_ok[i] ? id : 0) * npad + (c % 8) * 8;
-  }
-  auto load = [&](int stage, int chunk) {
-    const int k0 = k_begin + chunk * kChunk;
-#pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
+    for (int i = 0; i < kRows * (kCols / 8) / kThreads; ++i) {
       const int c = tid + i * kThreads;
-      cp_async16(&sA[stage][c / 8][(c % 8) * 8], a_src[i] + k0, a_ok[i]);
-      cp_async16(&sB[stage][c / 8][(c % 8) * 8],
-                 x0 + (size_t)(k0 + c / 8) * dpad + d0 + (c % 8) * 8, true);
+      const int row = c / (kCols / 8), col = col0 + (c % (kCols / 8)) * 8;
+      const int id = ids[row];
+      const bool ok = rb + row < r_tot && id >= 0 && id < n && col < npad;
+      cp_async16(sp + row * kLdP + (c % (kCols / 8)) * 8,
+                 p + (ok ? (size_t)id * npad + col : 0), ok);
     }
-    cp_async_commit();
+    for (int c = tid; c < kRows * (kDTile / 8); c += kThreads) {
+      const int row = c / (kDTile / 8), r = rb + row;
+      cp_async16(sc + row * kLdC + (c % 8) * 8,
+                 ct + (r < r_tot ? (size_t)r * dpad + d0 + (c % 8) * 8 : 0),
+                 r < r_tot);
+    }
+    if (tid < kRows / 4 && t + kAhead < n_stages) load_ids(t + kAhead, tid);
   };
 
-  float acc[8][4] = {};
-  if (n_chunks > 0) load(0, 0);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      load((ch + 1) % 2, ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    mma_chunk<false>(acc, sA[ch % 2], sB[ch % 2], warp, lane);
-    __syncthreads();  // the stage is reloaded two chunks later
+  // the ids of the first kAhead stages, then those stages (whose loads
+  // fill the id slots kAhead .. 2 kAhead - 1, none of which they read)
+  if (tid < kAhead * (kRows / 4) && tid / (kRows / 4) < n_stages)
+    load_ids(tid / (kRows / 4), tid % (kRows / 4));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < kAhead; ++t) {
+    if (t < n_stages) load(t);
+    cp_async_commit();
   }
 
-  float* out = part + (size_t)blockIdx.y * r_tot * dpad;
+  float acc[kWarpCols / 16][8][4] = {};
+  const int wc = warp * kWarpCols;
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kStages - 2>();
+    // stage s (and the ids of stage s + kAhead) landed for every thread,
+    // and every warp is done with stage s - 1, whose buffer the next load
+    // refills
+    __syncthreads();
+    if (s + kAhead < n_stages) load(s + kAhead);
+    cp_async_commit();
+    const bf16* sp = sP + (s % kStages) * kRows * kLdP;
+    const bf16* sc = sC + (s % kStages) * kRows * kLdC;
+#pragma unroll
+    for (int k0 = 0; k0 < kRows; k0 += 16) {  // gathered rows in order
+      uint32_t a[kWarpCols / 16][4];
+#pragma unroll
+      for (int mt = 0; mt < kWarpCols / 16; ++mt) {
+        ldsm_x4_t(a[mt], sp + (k0 + (lane % 8) + (lane / 16) * 8) * kLdP +
+                             wc + mt * 16 + ((lane / 8) % 2) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < kDTile / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, sc + (k0 + (lane % 16)) * kLdC + np * 16 +
+                         (lane / 16) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kWarpCols / 16; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float step[4] = {};  // this k16 step, folded into acc below
+            mma16816(step, a[mt], b[2 * h], b[2 * h + 1]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][2 * np + h][i] += step[i];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (col0 + wc >= npad) return;  // a warp past the last column of P
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = d0 + j * 8 + t * 2;
+  for (int mt = 0; mt < kWarpCols / 16; ++mt) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + warp * 16 + g + h * 8;
-      if (r < r_tot) {
-        *reinterpret_cast<float2*>(out + (size_t)r * dpad + col) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t c = col0 + wc + mt * 16 + g + h * 8;
+        *reinterpret_cast<float2*>(dx + c * dpad + d0 + j * 8 + t * 2) =
+            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
       }
     }
   }
 }
 
-// K4: dx (npad, dpad) = P[rows]^T @ ct, one block per 64 x 64 output tile.
-__global__ void __launch_bounds__(kThreads)
-gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
-                  const bf16* __restrict__ ct, float* __restrict__ dx, int n,
-                  int npad, int r_tot, int dpad) {
-  __shared__ __align__(16) bf16 sP[2][kChunk][kLd];  // [gathered row][column]
-  __shared__ __align__(16) bf16 sC[2][kChunk][kLd];  // [gathered row][feature]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c0 = blockIdx.x * kTile;
-  const int d0 = blockIdx.y * kTile;
-  const int n_chunks = (r_tot + kChunk - 1) / kChunk;
-
-  auto load = [&](int stage, int chunk) {
-    const int rb = chunk * kChunk;
-#pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = rb + c / 8;
-      const int id = r < r_tot ? rows[r] : -1;
-      const bool ok = id >= 0 && id < n;
-      cp_async16(&sP[stage][c / 8][(c % 8) * 8],
-                 p + (size_t)(ok ? id : 0) * npad + c0 + (c % 8) * 8, ok);
-      cp_async16(&sC[stage][c / 8][(c % 8) * 8],
-                 ct + (size_t)(r < r_tot ? r : 0) * dpad + d0 + (c % 8) * 8,
-                 r < r_tot);
-    }
-    cp_async_commit();
-  };
-
-  float acc[8][4] = {};
-  if (n_chunks > 0) load(0, 0);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      load((ch + 1) % 2, ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    mma_chunk<true>(acc, sP[ch % 2], sC[ch % 2], warp, lane);
-    __syncthreads();
-  }
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = d0 + j * 8 + t * 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + warp * 16 + g + h * 8;
-      *reinterpret_cast<float2*>(dx + (size_t)c * dpad + col) =
-          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
-  }
+bool bad_shape(int n, int npad, int r_tot, int dpad) {
+  return n < 1 || npad < n || npad % 64 || r_tot < 0 ||
+         dpad < kDTile || dpad % kDTile;
 }
 
-bool bad_shape(int n, int npad, int r_tot, int dpad) {
-  return n < 1 || npad < n || npad % kTile || r_tot < 0 || dpad < kTile ||
-         dpad % kTile;
+// Blocks of the body an SM holds, as the runtime's occupancy calculator
+// reports it (0 when the query fails).
+int bwd_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaFuncSetAttribute(gather_bwd_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, gather_bwd_kernel, kThreads, kSmem) != cudaSuccess)
+    return 0;
+  return blocks;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of column splits K3 uses (the size of its partial scratch).
-int igcn_gather_fwd_splits(int r_tot, int npad, int dpad) {
-  const int tiles = ((r_tot + kTile - 1) / kTile) * (dpad / kTile);
-  const int chunks = npad / kChunk;
-  int s = (kTargetBlocks + tiles - 1) / (tiles > 0 ? tiles : 1);
-  if (s > chunks) s = chunks;
-  return s < 1 ? 1 : s;
+// K4's launch at this shape, d padded to a multiple of 64 as the wrapper
+// does: writes grid x (column tiles), grid y (feature tiles), threads a
+// block, shared-memory bytes a block, ring stages and blocks an SM (the
+// runtime's occupancy).
+void igcn_gather_bwd_launch_shape(int npad, int d, int* shape) {
+  shape[0] = (npad + kCols - 1) / kCols;
+  shape[1] = (d + kDTile - 1) / kDTile;
+  shape[2] = kThreads;
+  shape[3] = kSmem;
+  shape[4] = kStages;
+  shape[5] = bwd_blocks_per_sm();
 }
 
-// p (n, npad) bf16; rows (r_tot,) int32; x0 (npad, dpad) bf16;
-// part (splits, r_tot, dpad) f32 scratch; out (r_tot, dpad) f32. With one
-// split, part may be out.
-int igcn_gather_fwd(const void* p, const void* rows, const void* x0,
-                    void* part, void* out, int n, int npad, int r_tot,
-                    int dpad, int splits, void* stream) {
-  if (bad_shape(n, npad, r_tot, dpad) ||
-      splits != igcn_gather_fwd_splits(r_tot, npad, dpad))
-    return (int)cudaErrorInvalidValue;
-  if (r_tot == 0) return (int)cudaGetLastError();
-  auto s = static_cast<cudaStream_t>(stream);
-  const int chunks = npad / kChunk;
-  const int k_per_split = ((chunks + splits - 1) / splits) * kChunk;
-  float* dst = splits == 1 ? static_cast<float*>(out)
-                           : static_cast<float*>(part);
-  dim3 grid((r_tot + kTile - 1) / kTile, splits, dpad / kTile);
-  gather_fwd_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(p), static_cast<const int*>(rows),
-      static_cast<const bf16*>(x0), dst, n, npad, r_tot, dpad, k_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)igcn::sum_splits(static_cast<const float*>(part),
-                               static_cast<float*>(out),
-                               (long long)r_tot * dpad, splits, s);
-}
-
-// p (n, npad) bf16; rows (r_tot,) int32; ct (r_tot, dpad) bf16;
-// dx (npad, dpad) f32.
+// p (n, npad) bf16; rows (r_tot,) int32, 16-byte aligned; ct (r_tot, dpad)
+// bf16; dx (npad, dpad) f32.
 int igcn_gather_bwd(const void* p, const void* rows, const void* ct,
                     void* dx, int n, int npad, int r_tot, int dpad,
                     void* stream) {
-  if (bad_shape(n, npad, r_tot, dpad)) return (int)cudaErrorInvalidValue;
-  dim3 grid(npad / kTile, dpad / kTile);
-  gather_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (bad_shape(n, npad, r_tot, dpad) ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((npad + kCols - 1) / kCols, dpad / kDTile);
+  gather_bwd_kernel<<<grid, kThreads, kSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(p), static_cast<const int*>(rows),
       static_cast<const bf16*>(ct), static_cast<float*>(dx), n, npad, r_tot,
       dpad);

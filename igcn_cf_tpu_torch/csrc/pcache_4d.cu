@@ -19,8 +19,14 @@
 // 2 B = 906 MB, 0.270 ms at the data sheet's 3.35 TB/s, against 2 * R *
 // npad * d = 5.8e10 FLOP, 0.059 ms at 989 TFLOP/s bf16: all four kernels are
 // bound by the P stream. They multiply on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 sums), fed by cp.async rings: the building blocks
-// of K3/K4 (pcache.cu; helpers in mma_sync.cuh).
+// m16n8k16 (bf16 in, f32 sums), fed by cp.async rings (helpers in
+// mma_sync.cuh).
+//
+// K3, the propagation cache's forward (igcn_cf_tpu/kernels/pcache.py::
+// _fused_fwd: reps (R, d) = P[rows] @ X0 on the row-major (n, npad) P), is
+// T1's body at TR 128 with NJ gone: its entry igcn_gather_fwd is below, and
+// at one (P, rows, X0) it is bit-equal to T1 at TR 128, which runs the
+// same kernel with the same S.
 //
 // T1's forward body. A gathered row is a random 147 KB run of P, so the
 // stream is a gather of 128-byte row segments, and at about 1 us of latency
@@ -49,9 +55,9 @@
 // - Each stage is summed in a fresh tensor-core fragment and folded into
 //   the running sum with f32 adds (see fold); a block owns TR gathered rows
 //   (TR / 16 warps, 16 rows and 64 features each).
-// T1 and K3 (pcache.cu) now share the column split and the slab sum; they
-// differ in the 4-D operand, the rows a block owns, the ring depth and how
-// S is chosen.
+// K3 launches this body at TR 128 with T1's S. K4, the cache's backward,
+// has a body of its own (pcache.cu) that computes T2's function with
+// 320-column tiles.
 //
 // T3 is T1's body with a compile-time RESIDENT flag. On the TPU,
 // resident_x0 fetches all of X0 into VMEM once; on Hopper X0 (npad x 64
@@ -113,6 +119,7 @@ constexpr int kLdP = kColTile + 8;      // padded smem row of T2's P tile
 constexpr int kT2Threads = 256;         // 8 warps x 16 columns
 constexpr int kMaxTr = 256;             // TR in [16, 256], a multiple of 16
 constexpr int kMaxSmem = 232448;        // bytes a block may use on Hopper
+constexpr int kK3Tr = 128;              // K3's rows a block
 
 // One k16 step of a warp's 16 x 64 output tile: acc += A (16 x 16) @ B
 // (16 x 64). A(m, k) is sA[(m0 + m) * LDA + k0 + k], or with A_TRANS
@@ -398,6 +405,33 @@ int fwd_splits(int r_tot, int npad, int dpad, int tr) {
   return s < 1 ? 1 : s;
 }
 
+// The forward body over the row-major (n, npad) P, once its entry has
+// checked the shape: splits in [1, npad / 64], part given when splits > 1.
+template <bool RESIDENT>
+int launch_fwd_body(const void* p, const void* rows, const void* x0,
+                    void* part, void* out, int n, int npad, int r_tot,
+                    int dpad, int tr, int splits, void* stream) {
+  if (r_tot == 0) return (int)cudaGetLastError();
+  const size_t smem = fwd_smem(tr);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_fwd_4d_kernel<RESIDENT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int stages = npad / kChunk;
+  const int per_split = (stages + splits - 1) / splits;
+  auto s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(splits == 1 ? out : part);
+  dim3 grid((r_tot + tr - 1) / tr, splits, dpad / kDTile);
+  fused_fwd_4d_kernel<RESIDENT><<<grid, 2 * tr, smem, s>>>(
+      static_cast<const bf16*>(p), static_cast<const int*>(rows),
+      static_cast<const bf16*>(x0), dst, n, npad, r_tot, dpad, tr, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)igcn::sum_splits(static_cast<const float*>(part),
+                               static_cast<float*>(out),
+                               (long long)r_tot * dpad, splits, s);
+}
+
 template <bool RESIDENT>
 int launch_fwd(const void* p4, const void* rows, const void* x0, void* part,
                void* out, int n, int nj, int tkc, int r_tot, int dpad, int tr,
@@ -406,26 +440,8 @@ int launch_fwd(const void* p4, const void* rows, const void* x0, void* part,
   if (bad_shape(n, nj, tkc, r_tot, dpad, tr) || npad > INT32_MAX ||
       splits < 1 || splits > npad / kChunk || (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;
-  if (r_tot == 0) return (int)cudaGetLastError();
-  const size_t smem = fwd_smem(tr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_fwd_4d_kernel<RESIDENT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int stages = (int)(npad / kChunk);
-  const int per_split = (stages + splits - 1) / splits;
-  auto s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(splits == 1 ? out : part);
-  dim3 grid((r_tot + tr - 1) / tr, splits, dpad / kDTile);
-  fused_fwd_4d_kernel<RESIDENT><<<grid, 2 * tr, smem, s>>>(
-      static_cast<const bf16*>(p4), static_cast<const int*>(rows),
-      static_cast<const bf16*>(x0), dst, n, (int)npad, r_tot, dpad, tr,
-      per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)igcn::sum_splits(static_cast<const float*>(part),
-                               static_cast<float*>(out),
-                               (long long)r_tot * dpad, splits, s);
+  return launch_fwd_body<RESIDENT>(p4, rows, x0, part, out, n, (int)npad,
+                                   r_tot, dpad, tr, splits, stream);
 }
 
 template <bool TRANS_OUT>
@@ -473,6 +489,31 @@ void igcn_fused_fwd_launch_shape(int r_tot, int npad, int d, int tr,
   shape[5] = kStages;
   shape[6] = fwd_blocks_per_sm(tr);
   shape[7] = npad / kChunk;
+}
+
+// K3: S of igcn_gather_fwd at this shape (T1's S at TR 128).
+int igcn_gather_fwd_splits(int r_tot, int npad, int dpad) {
+  return fwd_splits(r_tot, npad, dpad, kK3Tr);
+}
+
+// K3's launch at this shape: igcn_fused_fwd_launch_shape at TR 128.
+void igcn_gather_fwd_launch_shape(int r_tot, int npad, int d, int* shape) {
+  igcn_fused_fwd_launch_shape(r_tot, npad, d, kK3Tr, shape);
+}
+
+// K3: p (n, npad) bf16, npad a multiple of 64; rows (r_tot,) int32; x0
+// (npad, dpad) bf16; part (splits, r_tot, dpad) f32 scratch (may be out
+// when splits is 1); out (r_tot, dpad) f32. splits in [1, npad / 64], the
+// body's range; the wrapper passes igcn_gather_fwd_splits.
+int igcn_gather_fwd(const void* p, const void* rows, const void* x0,
+                    void* part, void* out, int n, int npad, int r_tot,
+                    int dpad, int splits, void* stream) {
+  if (n < 1 || npad < n || npad % kChunk || r_tot < 0 || dpad < kDTile ||
+      dpad % kDTile || splits < 1 || splits > npad / kChunk ||
+      (splits > 1 && !part))
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_body<false>(p, rows, x0, part, out, n, npad, r_tot, dpad,
+                                kK3Tr, splits, stream);
 }
 
 // p4 (n, nj, tkc / 128, 128) bf16; rows (r_tot,) int32; x0 (nj * tkc,

@@ -14,6 +14,7 @@ to a plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -86,6 +87,15 @@ _SIGNATURES = {
 }
 
 _lib = None
+
+
+@functools.lru_cache(maxsize=1024)
+def splits(entry: str, device: int, *shape: int) -> int:
+    """The split count that C helper ``entry`` chooses at ``shape`` (ints)
+    on card ``device``, asked once a shape: the runtime's occupancy query
+    behind it costs host time that every launch would pay."""
+    with torch.cuda.device(device):
+        return getattr(library(), entry)(*shape)
 
 
 def reset_launches() -> None:
@@ -198,6 +208,12 @@ def library() -> ctypes.CDLL:
         lib.igcn_fused_topk_chunks.restype = ctypes.c_int
         lib.igcn_gather_fwd_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_gather_fwd_splits.restype = ctypes.c_int
+        lib.igcn_gather_fwd_launch_shape.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.igcn_gather_fwd_launch_shape.restype = None
+        lib.igcn_gather_bwd_launch_shape.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.igcn_gather_bwd_launch_shape.restype = None
         lib.igcn_t2_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_t2_splits.restype = ctypes.c_int
         lib.igcn_fused_fwd_splits.argtypes = [ctypes.c_int] * 4

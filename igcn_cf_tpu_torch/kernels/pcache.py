@@ -31,6 +31,7 @@ recompute piece (``ab_select``), remembering the verdict on disk.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import time
@@ -198,22 +199,54 @@ def _d_padded(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _rows32(rows: torch.Tensor) -> torch.Tensor:
+    """rows as a contiguous int32 tensor with 16-byte aligned data (K4
+    copies its row ids 16 bytes at a time): rows itself where it already
+    is so."""
+    r = rows.to(torch.int32).contiguous()
+    if r.device.type == "cuda" and r.data_ptr() % 16:
+        r = r.clone()
+    return r
+
+
+# K3's and K4's launch at a shape, as igcn_gather_{fwd,bwd}_launch_shape
+# write it: K3 (T1's body) splits its columns in S ranges, K4 has no split
+LAUNCH_SHAPE_KEYS = {
+    "K3": ("grid_x", "splits", "d_tiles", "threads", "smem_bytes", "stages",
+           "blocks_per_sm", "max_splits"),
+    "K4": ("grid_x", "d_tiles", "threads", "smem_bytes", "stages",
+           "blocks_per_sm"),
+}
+
+
+def gather_launch_shape(kid: str, r: int, npad: int, d: int) -> dict:
+    """K3's or K4's launch (``kid``) at R rows, npad columns and width d on
+    the current card: ``LAUNCH_SHAPE_KEYS[kid]`` -> int."""
+    keys = LAUNCH_SHAPE_KEYS[kid]
+    shape = (ctypes.c_int * len(keys))()
+    if kid == "K3":
+        _build.library().igcn_gather_fwd_launch_shape(r, npad, d, shape)
+    else:
+        _build.library().igcn_gather_bwd_launch_shape(npad, d, shape)
+    return dict(zip(keys, shape))
+
+
 def _gather_fwd_cuda(p, rows, x0b):
     _check_gather(p, rows, x0b, p.shape[1], "x0")
     n, npad = p.shape
     r, d = rows.shape[0], x0b.shape[1]
     xb = _d_padded(x0b)
     dpad = xb.shape[1]
-    rows32 = rows.to(torch.int32).contiguous()
-    splits = _build.library().igcn_gather_fwd_splits(r, npad, dpad)
+    splits = _build.splits("igcn_gather_fwd_splits", p.device.index, r, npad,
+                           dpad)
     out = torch.empty((r, dpad), dtype=torch.float32, device=p.device)
-    part = (out if splits == 1 else
-            torch.empty((splits, r, dpad), dtype=torch.float32,
-                        device=p.device))
-    _build.launch("igcn_gather_fwd", p, rows32, xb, part, out, n, npad, r,
-                  dpad, splits)
+    part = out if splits == 1 else torch.empty((splits, r, dpad),
+                                               dtype=torch.float32,
+                                               device=p.device)
+    _build.launch("igcn_gather_fwd", p, _rows32(rows), xb, part, out, n, npad,
+                  r, dpad, splits)
     _build.LAUNCHES["K3"] += 1
-    return out[:, :d]
+    return out if dpad == d else out[:, :d]
 
 
 def _gather_bwd_cuda(p, rows, ctb):
@@ -223,17 +256,17 @@ def _gather_bwd_cuda(p, rows, ctb):
     cb = _d_padded(ctb)
     dpad = cb.shape[1]
     dx = torch.empty((npad, dpad), dtype=torch.float32, device=p.device)
-    _build.launch("igcn_gather_bwd", p, rows.to(torch.int32).contiguous(), cb,
-                  dx, n, npad, r, dpad)
+    _build.launch("igcn_gather_bwd", p, _rows32(rows), cb, dx, n, npad, r,
+                  dpad)
     _build.LAUNCHES["K4"] += 1
-    return dx[:, :d]
+    return dx if dpad == d else dx[:, :d]
 
 
 def gather_fwd(p: torch.Tensor, rows: torch.Tensor,
                x0b: torch.Tensor) -> torch.Tensor:
     """K3: reps (R, d) f32 = P[rows] @ X0, X0 (npad, d) taken as bf16, any
-    R. CUDA tensors launch ``csrc/pcache.cu``; CPU tensors take the plain
-    version."""
+    R. CUDA tensors launch T1's body at TR 128 (``csrc/pcache_4d.cu``,
+    ``igcn_gather_fwd``); CPU tensors take the plain version."""
     if _build.on_cuda(p):
         return _gather_fwd_cuda(p, rows, x0b)
     return gather_fwd_plain(p, rows, x0b)
@@ -242,7 +275,9 @@ def gather_fwd(p: torch.Tensor, rows: torch.Tensor,
 def gather_bwd(p: torch.Tensor, rows: torch.Tensor,
                ctb: torch.Tensor) -> torch.Tensor:
     """K4: dX0 (npad, d) f32 = P[rows]^T @ ct, ct (R, d) taken as bf16;
-    duplicate rows sum. Deterministic on CUDA: two launches are bit-equal."""
+    duplicate rows sum. CUDA tensors launch ``csrc/pcache.cu``,
+    deterministic (two launches are bit-equal); CPU tensors take the plain
+    version."""
     if _build.on_cuda(p):
         return _gather_bwd_cuda(p, rows, ctb)
     return gather_bwd_plain(p, rows, ctb)
@@ -251,6 +286,7 @@ def gather_bwd(p: torch.Tensor, rows: torch.Tensor,
 class _CachedPropFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, rows, x0):
+        rows = _rows32(rows)  # once a step: the backward reads this copy
         ctx.save_for_backward(p, rows)
         ctx.n = x0.shape[0]
         x0b = torch.zeros((p.shape[1], x0.shape[1]), dtype=torch.bfloat16,

@@ -17,7 +17,8 @@ rows (R * npad * 2 B) and the product's FLOP:
   D   gather, forward and backward through torch
   F4  T1 ``fused_fwd_4d`` (csrc/pcache_4d.cu)
   G4  T2 ``fused_bwd_4d``
-  E   the port's ``cached_prop`` forward and backward (K3/K4, csrc/pcache.cu)
+  E   the port's ``cached_prop`` forward and backward (K3 through T1's body in
+      csrc/pcache_4d.cu, K4 in csrc/pcache.cu)
 
 then the card's roofline for one pass.
 
@@ -29,7 +30,6 @@ that K3/K4 read, so row E runs on the very tensor F4 and G4 read.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -116,16 +116,8 @@ def fwd_splits(r: int, npad: int, d: int, tr: int = TR) -> int:
     """Column splits S of T1/T3's body at this shape on the current card:
     the number of partial (R, d) f32 slabs their wrappers allocate (none
     when 1)."""
-    return _fwd_splits(torch.cuda.current_device(), r, npad, pad_to(d, _TILE),
-                       tr)
-
-
-@functools.lru_cache(maxsize=256)
-def _fwd_splits(device: int, r: int, npad: int, dpad: int, tr: int) -> int:
-    # the runtime's occupancy query costs host time that events around a
-    # call would count, so each shape asks once
-    with torch.cuda.device(device):
-        return _build.library().igcn_fused_fwd_splits(r, npad, dpad, tr)
+    return _build.splits("igcn_fused_fwd_splits", torch.cuda.current_device(),
+                         r, npad, pad_to(d, _TILE), tr)
 
 
 def fwd_launch_shape(r: int, npad: int, d: int, tr: int = TR) -> dict:
@@ -146,7 +138,8 @@ def _fwd_launch(entry, kid, p4, rows, x0, tr, *extra, splits=None):
     xb = _d_padded(x0)
     dpad = xb.shape[1]
     if splits is None:
-        splits = _fwd_splits(p4.device.index, r, npad, dpad, tr)
+        splits = _build.splits("igcn_fused_fwd_splits", p4.device.index, r,
+                               npad, dpad, tr)
     if not 1 <= splits <= npad // 64:
         raise ValueError(f"splits {splits} must be in [1, {npad // 64}]")
     out = torch.empty((r, dpad), dtype=torch.float32, device=p4.device)

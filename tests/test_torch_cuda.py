@@ -643,6 +643,128 @@ def test_tune_and_gather_wrappers_refuse_bad_operands(cuda):
     assert _build.LAUNCHES == before
 
 
+# -- the propagation cache's pair: K4's 320-column body, K3 as T1's body at
+#    TR 128 ---------------------------------------------------------------------
+
+
+def _pcache_case(cuda, n, npad, r, d, dup, seed):
+    """P (n, npad) bf16 (npad a multiple of 64), rows with four ids outside
+    [0, n) and, with ``dup``, every id at least twice, and the same rows
+    clamped into range with a mask of the bad ones."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=gen, device=cuda)
+    if dup:
+        rows[r // 2:] = rows[: r - r // 2].clone()
+    rows[torch.arange(4, device=cuda) * (r // 4)] = torch.tensor(
+        [-1, n, n + 7, -n], device=cuda)
+    ok = (rows >= 0) & (rows < n)
+    return p, rows, rows.clamp(0, n - 1), ok
+
+
+@pytest.mark.parametrize("n,npad,r,d,dup", [
+    (700, 704, 300, 64, True),      # npad 11 x 64: a part-full last tile
+    (900, 1024, 517, 40, False),    # ragged R, d padded to the tile
+    (1500, 1600, 1000, 128, True),  # two feature tiles, npad 25 x 64
+    (300, 320, 33, 64, True),       # one stage and a row
+])
+def test_gather_bwd_matches_plain(cuda, n, npad, r, d, dup):
+    """K4 against the plain version, ids outside [0, n) reading as zeros and
+    duplicate ids summing; its launch shape; one count a call; two launches
+    bit-equal."""
+    p, rows, clamped, ok = _pcache_case(cuda, n, npad, r, d, dup, n + r + d)
+    ctb = torch.randn((r, d), device=cuda).to(torch.bfloat16)
+    want = pcache.gather_bwd_plain(p, clamped, ctb * ok[:, None])
+    shape = pcache.gather_launch_shape("K4", r, npad, d)
+    assert shape["grid_x"] == -(-npad // 320) and shape["d_tiles"] == -(-d // 64)
+    before = _build.LAUNCHES["K4"]
+    got = pcache.gather_bwd(p, rows, ctb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K4"] == before + 1
+    assert got.shape == (npad, d)
+    torch.testing.assert_close(got, want, **GATHER_TOL)
+    assert torch.equal(got, pcache.gather_bwd(p, rows, ctb))
+
+
+def test_gather_bwd_is_bit_equal_at_the_training_rows(cuda):
+    """Two K4 launches at R = 6,144 (the training slice's 3 x 2048 rows,
+    repeats included) are bit-equal."""
+    p, rows = _gather_case(cuda, 8000, 6144, True)
+    ctb = torch.randn((6144, 64), device=cuda).to(torch.bfloat16)
+    got = pcache.gather_bwd(p, rows, ctb)
+    assert torch.equal(got, pcache.gather_bwd(p, rows, ctb))
+    torch.testing.assert_close(got, pcache.gather_bwd_plain(p, rows, ctb),
+                               **GATHER_TOL)
+
+
+def test_gather_bwd_reads_a_misaligned_int32_view(cuda):
+    """An int32 rows view that starts 4 bytes into its storage (K4 copies
+    ids 16 bytes at a time) gives the aligned result."""
+    p, rows = _gather_case(cuda, 900, 302, True)
+    ctb = torch.randn((301, 64), device=cuda).to(torch.bfloat16)
+    view = rows.to(torch.int32)[1:]
+    assert view.data_ptr() % 16
+    torch.testing.assert_close(pcache.gather_bwd(p, view, ctb),
+                               pcache.gather_bwd_plain(p, view, ctb), **GATHER_TOL)
+    assert torch.equal(pcache.gather_bwd(p, view, ctb),
+                       pcache.gather_bwd(p, view.clone(), ctb))
+
+
+@pytest.mark.parametrize("nj", [1, 2, 4])
+def test_k3_is_bit_equal_to_t1_at_tr128(cuda, nj):
+    """K3 runs T1's body at TR 128 with T1's S: bit-equal to T1 on the 4-D
+    view of the same row-major P, ids outside [0, n) included."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    n, npad, r = 900, 2048, 3 * 128 + 5
+    p, rows, _, _ = _pcache_case(cuda, n, npad, r, 64, True, nj)
+    x0b = torch.randn((npad, 64), device=cuda).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    got = pcache.gather_fwd(p, rows, x0b)
+    t1 = mpc.fused_fwd_4d(mpc.to4d(p, nj), rows, x0b, 128)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K3"] == before["K3"] + 1
+    assert _build.LAUNCHES["T1"] == before["T1"] + 1
+    assert torch.equal(got, t1)
+    k3, t1_shape = (pcache.gather_launch_shape("K3", r, npad, 64),
+                    mpc.fwd_launch_shape(r, npad, 64, 128))
+    assert list(k3.values()) == list(t1_shape.values())
+
+
+@pytest.mark.parametrize("n,npad,r,d", [
+    (700, 704, 300, 40),   # npad 11 x 64, d padded
+    (300, 320, 129, 64),   # npad 5 x 64, one row past a block
+    (1500, 1600, 700, 128),
+])
+def test_k3_matches_plain_at_npad_not_a_multiple_of_128(cuda, n, npad, r, d):
+    """K3 where the 4-D entries refuse npad (not a multiple of 128), at its
+    chosen S, ids outside [0, n) reading as zeros; one count a call."""
+    p, rows, clamped, ok = _pcache_case(cuda, n, npad, r, d, False, n + d)
+    x0b = torch.randn((npad, d), device=cuda).to(torch.bfloat16)
+    want = pcache.gather_fwd_plain(p, clamped, x0b) * ok[:, None]
+    shape = pcache.gather_launch_shape("K3", r, npad, d)
+    assert 1 <= shape["splits"] <= shape["max_splits"] == npad // 64
+    before = _build.LAUNCHES["K3"]
+    got = pcache.gather_fwd(p, rows, x0b)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K3"] == before + 1
+    assert got.shape == (r, d)
+    _assert_close_scaled(got, want)
+    assert torch.equal(got[~ok], torch.zeros((4, d), device=cuda))
+
+
+def test_gather_pair_fills_the_card_at_the_training_slice(cuda):
+    """At R = 6,144 and npad = 70,912 (d = 64) K4's grid fits the card in
+    one wave, and K3's S fills it as T1's does."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k4 = pcache.gather_launch_shape("K4", 6144, 70912, 64)
+    assert k4["grid_x"] == -(-70912 // 320), k4  # 320 columns a block
+    assert k4["d_tiles"] == 1 and k4["grid_x"] <= k4["blocks_per_sm"] * sms, k4
+    k3 = pcache.gather_launch_shape("K3", 6144, 70912, 64)
+    blocks = k3["grid_x"] * k3["splits"] * k3["d_tiles"]
+    assert sms <= blocks <= k3["blocks_per_sm"] * sms, k3
+
+
 # -- the redesigned bodies: t2 (row chunks, summed in order) and t1 (16-byte
 #    word and X1 loads, lane groups) at ragged shapes ----------------------
 

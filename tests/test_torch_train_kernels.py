@@ -329,6 +329,35 @@ def test_cached_prop_and_grad_match_jax(tiny_ds, rng):
     assert dx.shape == (n, 8) and dx.dtype == torch.float32
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cached_prop_takes_int32_and_int64_rows(tiny_ds, rng, monkeypatch, dtype):
+    """The forward converts rows to int32 once and the backward reads that
+    copy: with either id type, the output and dX0 equal the JAX operator's
+    (duplicate ids included)."""
+    g, _ = _graphs(tiny_ds)
+    n = tiny_ds.n_users + tiny_ds.n_items
+    p = pcache.build_prop_cache(g, 2)
+    p4 = jnp.asarray(p.float().numpy()).astype(jnp.bfloat16).reshape(
+        n, 1, p.shape[1] // 128, 128)
+    rows = rng.integers(0, n, size=40).astype(np.int32)
+    rows[20:] = rows[:20]
+    x0 = rng.normal(size=(n, 16)).astype(np.float32)
+    ct = rng.normal(size=(len(rows), 16)).astype(np.float32)
+    want, vjp = jax.vjp(lambda x: jpc.cached_prop(p4, jnp.asarray(rows), x),
+                        jnp.asarray(x0))
+    (jdx,) = vjp(jnp.asarray(ct))
+    seen = []
+    bwd = pcache.gather_bwd
+    monkeypatch.setattr(pcache, "gather_bwd",
+                        lambda p_, r_, c_: seen.append(r_.dtype) or bwd(p_, r_, c_))
+    xt = _t(x0).requires_grad_()
+    got = pcache.cached_prop(p, torch.as_tensor(rows).to(dtype), xt)
+    (dx,) = torch.autograd.grad(got, xt, _t(ct))
+    assert seen == [torch.int32]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **PAIR_TOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **PAIR_TOL)
+
+
 def test_pcache_gating(monkeypatch):
     assert not pcache.use_pcache(100, 100, 3, "auto", device="cpu")  # auto on the CPU: off
     assert pcache.use_pcache(100, 100, 3, True, device="cpu")
