@@ -18,7 +18,9 @@ Phases, each fatal on failure:
      K6/K7 over the mask_words copy of B) and the K8 counterpart (the
      dropout mask over the full B, bit-equal) against their plain PyTorch
      versions on the card, at the slice's shapes, with median times of
-     both. Then the two product bodies: all eight entries on a small B
+     both; K5 at each request size also with its launch shape, its
+     device-only time and, as a note, f32 torch.matmul + torch.topk at the
+     same shape. Then the two product bodies: all eight entries on a small B
      whose word columns' set bits fall in several row chunks (m not a
      multiple of a chunk) at d 1, 33, 64, 128 and 256 against their plain
      versions; two full-shape launches of K2 and of K7m bit-equal; each
@@ -468,12 +470,36 @@ def check_topk(rng, n, n_items, nip, li, d, k, timed):
                 out.update(library_ms=None, **bound(
                     (n * d + d * nip + excl.numel() + nip + n * k) * 4,
                     2 * n * nip * d, "fp32"))
+                dev_ms = device_ms(
+                    lambda: fused_topk_ids(ur, it, excl, banned, k=k, li=li))
+                # a note, not a library time: the f32 scores alone by cuBLAS
+                # and torch.topk over them (no masking, no id order on ties)
+                note_ms = cuda_ms(lambda: torch.topk(ur @ it, k, dim=1))
         log(f"# K5 {kind} n={n} items={n_items} (pad {nip}) d={d} k={k}: "
             f"{same}/{n} rows identical, max score gap {gap:.3g}"
             + (f", {out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, bound "
                f"{out['bound_ms']:.4f} ms ({out['bound_by']})"
                if timed and kind == "normal" else ""))
+    if timed:
+        log(f"# K5 n={n}: {topk_launch_line(n, nip, k)}; device-only "
+            f"{dev_ms:.4f} ms; note: f32 torch.matmul + torch.topk at this "
+            f"shape {note_ms:.4f} ms")
     return out
+
+
+def topk_launch_line(n: int, nip: int, k: int) -> str:
+    """K5's launch at (n, nip, k) on the card (``retrieval.topk_launch_shape``
+    at the library's S) as a log fragment."""
+    from igcn_cf_tpu_torch.kernels.retrieval import (topk_launch_shape,
+                                                     topk_splits)
+
+    shape = topk_launch_shape(n, nip, k, topk_splits(n, nip, k, "cuda"))
+    return (f"grid ({shape['grid_x']}, {shape['splits']}) x {shape['threads']} "
+            f"threads, {shape['users_per_block']} users x "
+            f"{shape['items_per_tile']} items a tile, S {shape['splits']}, "
+            f"{shape['smem_bytes']} B shared, {shape['blocks_per_sm']} blocks "
+            f"an SM, {shape['slots_per_lane']} list slot(s) a lane"
+            + (", merge pass" if shape['splits'] > 1 else ""))
 
 
 def check_matmul_and_mask(rng, full):
@@ -1024,7 +1050,8 @@ def check_eval_topk(trainer, name):
 
     from igcn_cf_tpu_torch.evaluation.evaluate import recommend, retrieval_inputs
     from igcn_cf_tpu_torch.evaluation.metrics import calculate_metrics_device
-    from igcn_cf_tpu_torch.kernels.retrieval import LI, fused_topk_ids_plain
+    from igcn_cf_tpu_torch.kernels.retrieval import (LI, fused_topk_ids,
+                                                     fused_topk_ids_plain)
     from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
     args = (trainer.model, trainer.params, trainer.buffers, trainer.dataset, "val")
@@ -1042,6 +1069,7 @@ def check_eval_topk(trainer, name):
             want.append(w)
             same, gap = same + s, max(gap, g)
         ms = cuda_ms(lambda: recommend(*args, K), reps=5)
+        k5_ms = cuda_ms(lambda: fused_topk_ids(ur, it, ew, banned, k=K), reps=5)
     val = trainer.dataset.val
     ndcg_k = calculate_metrics_device(got, val, [K])["NDCG"][K]
     ndcg_p = calculate_metrics_device(torch.cat(want), val, [K])["NDCG"][K]
@@ -1055,7 +1083,8 @@ def check_eval_topk(trainer, name):
         f"items, d={ur.shape[1]}, trained reps, val exclusion: {same}/{n} rows "
         f"identical, max score gap "
         f"{gap:.3g}; NDCG@{K} {ndcg_k:.6f} vs plain {ndcg_p:.6f}; eval "
-        f"retrieval (reps + K5) {ms:.4f} ms")
+        f"retrieval (reps + K5) {ms:.4f} ms; K5 alone {k5_ms:.4f} ms "
+        f"({topk_launch_line(n, it.shape[1], K)})")
 
 
 @contextlib.contextmanager

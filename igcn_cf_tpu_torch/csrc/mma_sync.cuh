@@ -1,5 +1,6 @@
 // Device helpers shared by the gather-matmul kernels (pcache.cu, K4, and
-// pcache_4d.cu, K3 and T1-T4): 16-byte cp.async row copies into shared memory, with
+// pcache_4d.cu, K3 and T1-T4) and by K5's cp.async ring (fused_topk.cu):
+// 16-byte cp.async row copies into shared memory, with
 // or without an L2 eviction policy, ldmatrix loads of bf16 tiles, and the
 // warp-level tensor-core product mma.sync m16n8k16 with bf16 operands and
 // f32 sums.

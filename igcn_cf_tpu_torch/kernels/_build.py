@@ -81,9 +81,9 @@ _SIGNATURES = {
     "igcn_fused_bwd_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (x, idx, out, n, reps, w, row_blocks, bf16, stream)
     "igcn_gather_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (users, items_t, excl, banned, part_v, part_i, out,
-    #  n_users, n_items_pad, d, k, li, stream)
-    "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (users, items_t, excl, banned, scratch, out, n_users, n_items_pad, d,
+    #  k, li, splits, stream)
+    "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -204,8 +204,13 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.igcn_error_string.argtypes = [ctypes.c_int]
         lib.igcn_error_string.restype = ctypes.c_char_p
-        lib.igcn_fused_topk_chunks.argtypes = [ctypes.c_int]
-        lib.igcn_fused_topk_chunks.restype = ctypes.c_int
+        lib.igcn_fused_topk_splits.argtypes = [ctypes.c_int] * 3
+        lib.igcn_fused_topk_splits.restype = ctypes.c_int
+        lib.igcn_fused_topk_launch_shape.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.igcn_fused_topk_launch_shape.restype = None
+        lib.igcn_fused_topk_scratch_words.argtypes = [ctypes.c_int] * 4
+        lib.igcn_fused_topk_scratch_words.restype = ctypes.c_longlong
         lib.igcn_gather_fwd_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_gather_fwd_splits.restype = ctypes.c_int
         lib.igcn_gather_fwd_launch_shape.argtypes = [ctypes.c_int] * 3 + [

@@ -20,6 +20,8 @@ stored at column j*(li/32) + w, bit b.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -130,9 +132,37 @@ def fused_topk_ids_plain(users_rep, items_t, excl_words, banned_row, *,
     return order[:, :k].to(torch.int32)
 
 
-def _fused_topk_cuda(users_rep, items_t, excl_words, banned_row, k, li):
+TOPK_ITEM_TILE = 128  # K5's item tile: 4 exclusion words x 32 bit planes
+TOPK_LAUNCH_KEYS = ("grid_x", "splits", "threads", "smem_bytes",
+                    "blocks_per_sm", "users_per_block", "items_per_tile",
+                    "slots_per_lane")
+
+
+def topk_splits(n: int, nip: int, k: int, device) -> int:
+    """S, the item ranges K5 walks in parallel at (n, nip, k) on ``device``
+    (the library's choice: the most whose grid fills the card in one
+    wave)."""
+    return _build.splits("igcn_fused_topk_splits", torch.device(device).index,
+                         n, nip, k)
+
+
+def topk_launch_shape(n: int, nip: int, k: int, splits: int) -> dict:
+    """K5's launch at (n, nip, k) and S ``splits`` on the current card:
+    ``TOPK_LAUNCH_KEYS`` -> int."""
+    shape = (ctypes.c_int * len(TOPK_LAUNCH_KEYS))()
+    _build.library().igcn_fused_topk_launch_shape(n, nip, k, splits, shape)
+    return dict(zip(TOPK_LAUNCH_KEYS, shape))
+
+
+def _fused_topk_cuda(users_rep, items_t, excl_words, banned_row, k, li,
+                     splits=None):
+    """K5 on CUDA operands; ``splits`` (S) defaults to the library's choice
+    and is given only to compare choices."""
     n, d, nip = _check_topk_args(users_rep, items_t, excl_words, banned_row,
                                  k, li)
+    if li % TOPK_ITEM_TILE:
+        raise ValueError(f"K5 takes li a multiple of {TOPK_ITEM_TILE}, got "
+                         f"{li}")
     for name, t, dtype in (("users_rep", users_rep, torch.float32),
                            ("items_t", items_t, torch.float32),
                            ("excl_words", excl_words, torch.int32),
@@ -140,14 +170,22 @@ def _fused_topk_cuda(users_rep, items_t, excl_words, banned_row, k, li):
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype}, got "
                              f"{t.dtype}{'' if t.is_contiguous() else ' (strided)'}")
+        if t.data_ptr() % 16 and name != "users_rep":
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     dev = users_rep.device
-    # the chunk width lives in the source only; the library sizes the scratch
-    n_chunks = _build.library().igcn_fused_topk_chunks(nip)
-    part_v = torch.empty((n, n_chunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n, n_chunks, k), dtype=torch.int32, device=dev)
+    if splits is None:
+        splits = topk_splits(n, nip, k, dev)
+    if not 1 <= splits <= nip // TOPK_ITEM_TILE:
+        raise ValueError(f"splits={splits} must be in [1, "
+                         f"{nip // TOPK_ITEM_TILE}]")
     out = torch.empty((n, k), dtype=torch.int32, device=dev)
+    # the library sizes and carves the scratch (users transposed, S sorted
+    # lists, thresholds)
+    scratch = torch.empty(
+        _build.library().igcn_fused_topk_scratch_words(n, d, k, splits),
+        dtype=torch.int32, device=dev)
     _build.launch("igcn_fused_topk", users_rep, items_t, excl_words,
-                  banned_row, part_v, part_i, out, n, nip, d, k, li)
+                  banned_row, scratch, out, n, nip, d, k, li, splits)
     _build.LAUNCHES["K5"] += 1
     return out
 

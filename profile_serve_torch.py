@@ -16,7 +16,9 @@ warm-up refreshes onto the full catalog. Then it prints one line each for:
   - ``recommend`` wall ms for 512 and 4,096 users, k=20, median of 5;
   - a cProfile of one refresh: the host functions with the most own time;
   - ``torch.profiler`` of one refresh and of 5 requests of 4,096 users: the
-    device time of each kernel and copy, their sum, and its share of wall.
+    device time of each kernel and copy, their sum, and its share of wall;
+    K5's three passes are named (``PASSES``): the users' transpose, the
+    range pass (scores and running top-k) and the merge of the ranges.
 
 Every wall clock is read after ``torch.cuda.synchronize()``. The full
 cProfile and profiler tables go to ``--out``.
@@ -35,6 +37,22 @@ from pathlib import Path
 import numpy as np
 
 import chip_smoke as smoke
+
+
+# device kernels of the port, by a fragment of their symbol, for the table
+PASSES = {
+    "transpose_users_kernel": "K5 users transpose",
+    "topk_range_kernel": "K5 range pass (scores + running top-k)",
+    "merge_topk_kernel": "K5 merge of the S ranges",
+}
+
+
+def pass_name(key: str) -> str:
+    """The profiler's kernel name, led by its K5 pass where it is one."""
+    for frag, label in PASSES.items():
+        if frag in key:
+            return f"{label}: {key}"
+    return key
 
 
 def median_ms(fn, reps):
@@ -155,7 +173,8 @@ def main() -> int:
             lines.append(f"# {label}: wall {wall:.3f} ms, device {dev:.3f} ms, "
                          f"busy share {dev / wall:.4f}")
             for name, calls, ms in rows[:8]:
-                lines.append(f"#   {ms:9.3f} ms  {calls:3d} x  {name[:80]}")
+                lines.append(f"#   {ms:9.3f} ms  {calls:3d} x  "
+                             f"{pass_name(name)[:100]}")
     for line in lines:
         print(line, flush=True)
     print(f"# tables: {args.out}")

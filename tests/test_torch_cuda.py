@@ -71,7 +71,11 @@ def test_pair_kernel_is_deterministic(cuda):
     (150, 1000, 1024, 256, 8, 7),
     (33, 5000, 8192, 4096, 64, 128),   # largest k, ragged user count
     (16, 20, 128, 128, 4, 20),         # k = every real item
-    (300, 5000, 8192, 4096, 256, 20),  # NGCF's eval width: 80 KiB of smem
+    (300, 5000, 8192, 4096, 256, 20),  # NGCF's eval width
+    (200, 5000, 8192, 4096, 64, 32),   # one list slot a lane, bound at its limit
+    (200, 5000, 8192, 4096, 64, 33),   # four list slots a lane, no bound
+    (129, 800, 896, 128, 8, 20),       # a 1-row second user tile; 7 item tiles
+    (40, 1000, 1024, 128, 6, 20),      # d not a multiple of 4 or of 16
 ])
 @pytest.mark.parametrize("dyadic", [True, False])
 def test_fused_topk_kernel_matches_plain(cuda, n, n_items, nip, li, d, k,
@@ -107,6 +111,113 @@ def test_fused_topk_kernel_matches_plain(cuda, n, n_items, nip, li, d, k,
         assert bool(((sg - sw).abs() <= 1e-5 * sw.abs()).all())
 
 
+def _dyadic_topk_args(rng, n, nip, d, device):
+    ur = np.round(rng.standard_normal((n, d)) * 8) / 8
+    it = np.round(rng.standard_normal((d, nip)) * 8) / 8
+    return (torch.as_tensor(ur, dtype=torch.float32, device=device),
+            torch.as_tensor(it, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("k", [20, 40])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_fused_topk_row_with_fewer_allowed_items_than_k(cuda, k, splits):
+    """Row 0 may take 3 items (one of them banned), row 1 none: after the
+    allowed ones come the NEG-scored items, lowest id first, as the plain
+    version's stable sort orders them, across tiles and ranges."""
+    n, n_items, nip, li = 40, 1000, 1024, 128
+    rng = np.random.default_rng(k + splits)
+    ur, it = _dyadic_topk_args(rng, n, nip, 8, cuda)
+    allowed = [5, 300, 777]
+    rows = [np.zeros(n_items - 3, np.int64), np.ones(n_items, np.int64),
+            np.repeat(np.arange(2, n), 5)]
+    cols = [np.setdiff1d(np.arange(n_items), allowed), np.arange(n_items),
+            rng.integers(0, n_items, 5 * (n - 2))]
+    excl = retrieval.pack_exclusion_words_device(
+        np.concatenate(rows), np.concatenate(cols), n, nip, li=li, device=cuda)
+    banned = torch.zeros((1, nip), device=cuda)
+    banned[0, n_items:] = retrieval.NEG
+    banned[0, 300] = retrieval.NEG
+    got = retrieval._fused_topk_cuda(ur, it, excl, banned, k, li, splits)
+    want = retrieval.fused_topk_ids_plain(ur, it, excl, banned, k=k, li=li)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    s = (ur[0] @ it).cpu()
+    head = sorted([5, 777], key=lambda c: (-float(s[c]), c))
+    tail = [c for c in range(nip) if c not in (5, 777)]
+    assert got[0].tolist() == (head + tail)[:k]
+    assert got[1].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 5])
+def test_fused_topk_ties_straddle_tile_and_range_edges(cuda, splits):
+    """36 items share the top score: items 60-69 lie in three item tiles,
+    1020-1029 across the tiles (7 | 8) that begin a range at S 4, 2040-2055
+    across tiles 15 | 16, a range edge at S 2. The 25 lowest ids win."""
+    n, nip, li, d, k = 20, 4096, 1024, 4, 25
+    rng = np.random.default_rng(splits)
+    ur = torch.full((n, d), 0.25, device=cuda)
+    it = np.round(rng.uniform(-1.0, 0.5, (1, nip)) * 8) / 8
+    top = np.r_[60:70, 1020:1030, 2040:2056]
+    it[0, top] = 1.0
+    it = torch.as_tensor(np.repeat(it, d, axis=0), dtype=torch.float32,
+                         device=cuda)
+    excl = torch.zeros((n, nip // 32), dtype=torch.int32, device=cuda)
+    banned = torch.zeros((1, nip), device=cuda)
+    got = retrieval._fused_topk_cuda(ur, it, excl, banned, k, li, splits)
+    want = retrieval.fused_topk_ids_plain(ur, it, excl, banned, k=k, li=li)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[0].tolist() == sorted(top.tolist())[:k]
+
+
+def test_fused_topk_eval_shape_splits_give_identical_ids(cuda):
+    """At the validation eval's shape the item ranges S change only which
+    block sees which items: the scores are the same sums in the same order,
+    so S 1, the library's S and S 4 give identical ids, and two launches
+    agree. The chosen S's ids match the plain version rank-wise."""
+    n, n_items, nip, d, k = 29858, 40981, 45056, 64, 20
+    rng = np.random.default_rng(7)
+    ur = torch.as_tensor(rng.standard_normal((n, d), np.float32), device=cuda)
+    it = rng.standard_normal((d, nip), np.float32)
+    it[:, n_items:] = 0.0
+    it = torch.as_tensor(it, device=cuda)
+    rows = np.repeat(np.arange(n), 28)
+    excl = retrieval.pack_exclusion_words_device(
+        rows, rng.integers(0, n_items, 28 * n), n, nip, device=cuda)
+    banned = torch.zeros((1, nip), device=cuda)
+    banned[0, n_items:] = retrieval.NEG
+    chosen = retrieval.topk_splits(n, nip, k, cuda)
+    got = {s: retrieval._fused_topk_cuda(ur, it, excl, banned, k,
+                                         retrieval.LI, s)
+           for s in sorted({1, chosen, 4})}
+    again = retrieval._fused_topk_cuda(ur, it, excl, banned, k, retrieval.LI,
+                                       chosen)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, got[1]) for g in got.values())
+    assert torch.equal(again, got[chosen])
+    for a in range(0, n, 4096):
+        sl = slice(a, a + 4096)
+        want = retrieval.fused_topk_ids_plain(ur[sl], it, excl[sl], banned, k=k)
+        s = chip_smoke.plain_scores(ur[sl], it, excl[sl], banned, retrieval.LI)
+        chip_smoke.topk_agree(got[chosen][sl], want, s, chip_smoke.TOPK_RTOL)
+
+
+def test_fused_topk_is_deterministic_at_a_request(cuda):
+    """A 4,096-user request runs S > 1 ranges whose shared thresholds are
+    read in whatever order the blocks run: two launches give the same
+    ids."""
+    n, nip, d, k = 4096, 45056, 64, 20
+    rng = np.random.default_rng(11)
+    ur = torch.as_tensor(rng.standard_normal((n, d), np.float32), device=cuda)
+    it = torch.as_tensor(rng.standard_normal((d, nip), np.float32), device=cuda)
+    excl = torch.zeros((n, nip // 32), dtype=torch.int32, device=cuda)
+    banned = torch.zeros((1, nip), device=cuda)
+    assert retrieval.topk_splits(n, nip, k, cuda) > 1
+    a = retrieval.fused_topk_ids(ur, it, excl, banned, k=k)
+    b = retrieval.fused_topk_ids(ur, it, excl, banned, k=k)
+    assert torch.equal(a, b)
+
+
 def test_fused_topk_constant_scores_pick_lowest_ids(cuda):
     n, nip, k = 40, 2048, 25
     ur = torch.full((n, 4), 0.25, device=cuda)
@@ -132,6 +243,11 @@ def test_cuda_wrappers_refuse_bad_operands(cuda):
         retrieval.fused_topk_ids(ur, it.T.contiguous().T, excl, banned, k=5)
     with pytest.raises(ValueError):
         retrieval.fused_topk_ids(ur, it, excl, banned, k=129)
+    with pytest.raises(ValueError):  # K5's item tile needs li % 128 == 0
+        retrieval.fused_topk_ids(ur, it[:, :64 * 32].contiguous(),
+                                 excl[:, :64], banned[:, :64 * 32], k=5, li=64)
+    with pytest.raises(ValueError):  # S beyond one item tile a range
+        retrieval._fused_topk_cuda(ur, it, excl, banned, 5, 4096, 33)
 
 
 @pytest.mark.parametrize("n_users,n_items,nnz,d", [

@@ -146,6 +146,36 @@ def test_fused_topk_matches_jax_adversarial_ties(field):
     np.testing.assert_array_equal(got[:n_users], stable)
 
 
+@pytest.mark.parametrize("k", [20, 33])
+def test_fused_topk_matches_jax_with_fewer_allowed_items_than_k(k):
+    """Row 0 may take 3 items (one of them banned), row 1 none. Every other
+    row equals the JAX kernel's; rows 0 and 1 begin with its allowed items,
+    then hold the NEG-scored items lowest id first, the plain version's
+    stable order, which K5 keeps across its item tiles and ranges. There
+    the JAX kernel repeats id 0 (its merge evicts a winner by writing NEG,
+    the score those items already have): a fault of the reference that the
+    port does not copy. k 20 and 33 lie on either side of K5's 32-entry
+    lists."""
+    rng = np.random.default_rng(k)
+    n_users, n_items, d, bu, li, nup, nip = 40, 300, 8, 32, 128, 64, 384
+    ur, it, _ = _case(rng, n_users, n_items, d, nup, nip, li, dyadic=True)
+    allowed = [5, 150, 299]
+    excl = _lists(rng, n_users, n_items) + [[] for _ in range(nup - n_users)]
+    excl[0] = [c for c in range(n_items) if c not in allowed]
+    excl[1] = list(range(n_items))
+    words = retrieval.pack_exclusion_words(excl, nup, n_items, nip, li=li)
+    banned = np.zeros((1, nip), np.float32)
+    banned[0, n_items:] = NEG
+    banned[0, 150] = NEG
+    got, want = _both(ur, it, words, banned, k, bu, li)
+    np.testing.assert_array_equal(got[2:n_users], want[2:n_users])
+    np.testing.assert_array_equal(got[0, :2], want[0, :2])
+    assert sorted(want[0, :2]) == [5, 299]
+    tail = [c for c in range(nip) if c not in (5, 299)]
+    assert got[0].tolist() == want[0, :2].tolist() + tail[:k - 2]
+    assert got[1].tolist() == list(range(k))
+
+
 def test_fused_topk_refuses_bad_arguments():
     ur = torch.zeros((4, 8))
     it = torch.zeros((8, 256))
