@@ -16,7 +16,9 @@ Phases, each fatal on failure:
      (bb_matmul at the cache build's 128-wide block), K6m/K7m (the masked
      bb_matmul on the full B at NGCF's d=64 and p=0.1; also bit-equal to
      K6/K7 over the mask_words copy of B) and the K8 counterpart (the
-     dropout mask over the full B, bit-equal) against their plain PyTorch
+     dropout mask, one seed, and K8p, its two-seed pair, over the full B
+     and over microbench_dual's dense words, bit-equal, with device-only
+     times and the pair's three-stream bound) against their plain PyTorch
      versions on the card, at the slice's shapes, with median times of
      both; K5 at each request size also with its launch shape, its
      device-only time and, as a note, f32 torch.matmul + torch.topk at the
@@ -40,8 +42,9 @@ Phases, each fatal on failure:
      (prop_cache 'auto'), one epoch (407 steps) trains on the cache engine,
      and a validation eval runs through K5. The loss must be finite and
      fall over the epoch, and NDCG@20 must beat the untrained parameters'.
-     Then a few steps on the recompute engine. Every kernel K1-K8 must
-     launch during this phase.
+     Then a few steps on the recompute engine. Every kernel K1-K7 and the
+     mask pair K8p must launch during this phase, the pair once a cache
+     step and the one-seed K8 never.
   6. train checks -- K3/K4 at R = 6,144 on the real P against their plain
      versions, with their launch shapes and their event and device-only
      times, K4 bit-equal over two launches; a digest of K3's output on a
@@ -169,6 +172,9 @@ KERNELS = {
     "K8": ("mask_words: B & keepword (counterpart of mask_words_hw)",
            "igcn_cf_tpu_torch/csrc/mask_words.cu",
            "igcn_cf_tpu/kernels/bitpack.py:609"),
+    "K8p": ("mask_words_pair: B & keepword under two seeds, one pass",
+            "igcn_cf_tpu_torch/csrc/mask_words.cu",
+            "igcn_cf_tpu/kernels/bitpack.py:609"),
     "K1m": ("bbt_pair_dropped t1: y1t = ((B o M1) @ X1)^T, keep mask in the kernel",
             "igcn_cf_tpu_torch/csrc/bbt_pair.cu",
             "igcn_cf_tpu/kernels/bitpack.py:498"),
@@ -190,10 +196,10 @@ KERNELS = {
            "tools/microbench_gather.py:42"),
 }
 SERVE_KERNELS = ("K1", "K2", "K5")
-TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8p")
 GCN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
-TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K1m",
-                "K2m", "T1", "T2", "T3", "T4", "T5")
+TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K8p",
+                "K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
 # launched by the microbenchmark tools and nowhere else
 TOOL_ONLY = ("K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
 
@@ -537,23 +543,20 @@ def check_matmul_and_mask(rng, full):
     check_bodies(rng, g)
     seed = 2**32 - 12345  # near the top of the u32 range
     p = gowalla_preset("IGCN")[0]["dropout"]
-    got = bitpack.mask_words(g.B, seed, p)
-    want = bitpack.mask_words_plain(g.B, seed, p)
-    sync()
-    if not torch.equal(got, want):
-        raise AssertionError("K8 mask differs from its plain version")
-    kept = int(bitpack.unpack_bits(got[:2048]).sum())
+    out.update(check_mask(g.B, "B", seed, 2**32 - 54321, p))
+    kept = int(bitpack.unpack_bits(bitpack.mask_words(g.B, seed, p)[:2048]).sum())
     total = int(bitpack.unpack_bits(g.B[:2048]).sum())
-    # the words read and the masked words written; no torch call hashes
-    out["K8"] = {"max_abs_err": 0.0,
-                 "ms": cuda_ms(lambda: bitpack.mask_words(g.B, seed, p)),
-                 "plain_ms": cuda_ms(lambda: bitpack.mask_words_plain(g.B, seed, p),
-                                     reps=5),
-                 "library_ms": None, **bound(2 * g.B.numel() * 4, 0, "fp32")}
-    log(f"# K8 mask over B {m}x{kw} words, p={p}: bit-equal, kept "
-        f"{kept}/{total} edges of the first 2048 rows (expect "
-        f"{1 - round(p * 256) / 256:.4f}), {out['K8']['ms']:.4f} ms vs plain "
-        f"{out['K8']['plain_ms']:.4f} ms, bound {out['K8']['bound_ms']:.4f} ms")
+    log(f"# K8 over B: kept {kept}/{total} edges of the first 2048 rows "
+        f"(expect {1 - round(p * 256) / 256:.4f})")
+    # microbench_dual's dense words: every word non-zero, so the pass hashes
+    # every word (the kernels line keeps the training B's figures)
+    from igcn_cf_tpu_torch.tools import microbench_dual
+
+    dense = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 2**32, size=(microbench_dual.M, microbench_dual.K // 32),
+        dtype=np.uint64).astype(np.uint32).view(np.int32)).to("cuda")
+    check_mask(dense, "microbench_dual's dense words", seed, 2**32 - 54321, p)
+    del dense
 
     ngcf = gowalla_preset("NGCF")[0]
     d, p, seed = ngcf["embedding_size"], ngcf["dropout"], 2**32 - 777
@@ -582,6 +585,50 @@ def check_matmul_and_mask(rng, full):
             f"{out[name]['plain_ms']:.4f} ms, torch.sparse.mm of the masked B "
             f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({out[name]['bound_by']})")
+    return out
+
+
+def check_mask(words, label, seed_a, seed_b, p):
+    """K8 (one seed) and K8p (the pair) on ``words``, each copy bit-equal to
+    ``mask_words_plain``: times by events and device-only, against the
+    bound of their streams (the words read once, each copy written once:
+    two streams for K8, three for the pair). Returns their kernels-line
+    entries."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import bitpack
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    m, kw = words.shape
+    want_a = bitpack.mask_words_plain(words, seed_a, p)
+    want_b = bitpack.mask_words_plain(words, seed_b, p)
+    got = bitpack.mask_words(words, seed_a, p)
+    got_a, got_b = bitpack.mask_words_pair(words, seed_a, seed_b, p)
+    sync()
+    for name, a, b in (("K8", got, want_a), ("K8p under seed_a", got_a, want_a),
+                       ("K8p under seed_b", got_b, want_b)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} differs from mask_words_plain on {label}")
+    del got, got_a, got_b, want_a, want_b
+    nbytes = words.numel() * 4
+    out = {}
+    for name, kern, plain, streams in (
+            ("K8", lambda: bitpack.mask_words(words, seed_a, p),
+             lambda: bitpack.mask_words_plain(words, seed_a, p), 2),
+            ("K8p", lambda: bitpack.mask_words_pair(words, seed_a, seed_b, p),
+             lambda: bitpack.mask_words_pair_plain(words, seed_a, seed_b, p), 3)):
+        # the words read and the masked words written; no torch call hashes
+        out[name] = {"max_abs_err": 0.0, "ms": cuda_ms(kern),
+                     "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+                     "library_ms": None, **bound(streams * nbytes, 0, "fp32")}
+        dev = device_ms(kern)
+        log(f"# {name} over {label} {m}x{kw} words, seeds {seed_a}"
+            + (f", {seed_b}" if name == "K8p" else "") + f", p={p}: bit-equal "
+            f"to mask_words_plain; {out[name]['ms']:.4f} ms by events, "
+            f"{dev:.4f} ms on the device (torch.profiler), plain "
+            f"{out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
+            f"ms ({streams} streams of {nbytes / 1e6:.1f} MB, "
+            f"{out[name]['bound_by']})")
     return out
 
 
@@ -914,9 +961,15 @@ def phase_train(full):
 
     model_cfg, trainer_cfg = gowalla_preset("IGCN")
     _build.reset_launches()
-    trainer, _ = train_one_epoch("IGCN cache engine",
-                                 dict(model_cfg, prop_cache="auto"),
-                                 trainer_cfg, full, cache_engine=True)
+    trainer, epoch = train_one_epoch("IGCN cache engine",
+                                     dict(model_cfg, prop_cache="auto"),
+                                     trainer_cfg, full, cache_engine=True)
+    steps = trainer.steps_per_epoch()
+    if epoch["K8p"] != steps or epoch["K8"]:
+        raise AssertionError(f"IGCN cache engine: {epoch['K8p']} K8p and "
+                             f"{epoch['K8']} K8 launches in {steps} steps")
+    log(f"# IGCN cache engine: {epoch['K8p']} mask launches in {steps} steps, "
+        "all K8p: one a step, the pair masking B under both seeds in one pass")
     model_rc = get_model(dict(model_cfg, prop_cache=False), full, "cuda")
     trainer_rc = get_trainer(trainer_cfg, full, model_rc)
     trainer_rc.train_step(*trainer_rc.sample_step())  # warm-up
@@ -1100,7 +1153,7 @@ def plain_versions():
                 (bitpack, "mm_bwd", bitpack.mm_bwd_plain),
                 (bitpack, "mm_fwd_masked", bitpack.mm_fwd_masked_plain),
                 (bitpack, "mm_bwd_masked", bitpack.mm_bwd_masked_plain),
-                (dense_graph, "mask_words", bitpack.mask_words_plain),
+                (dense_graph, "mask_words_pair", bitpack.mask_words_pair_plain),
                 (pcache, "gather_fwd", pcache.gather_fwd_plain),
                 (pcache, "gather_bwd", pcache.gather_bwd_plain)):
             stack.enter_context(mock.patch.object(mod, name, plain))
@@ -1588,11 +1641,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     kern.update(check_gather_probe())
     tool_launches = phase_tools()
+    runs = earlier + [tool_launches]
+    log(f"# mask launches over the run: K8 (one seed) "
+        f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
+        f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "
+        "form mask B under their two seeds with one K8p launch in place of "
+        "two K8 launches")
     rows = []
     for name, (what, source, replaces) in KERNELS.items():
         rows.append({"name": f"{name} {what}", "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": sum(run[name] for run in earlier + [tool_launches]),
+                     "launches": sum(run[name] for run in runs),
                      **{key: kern[name][key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}})

@@ -43,4 +43,45 @@ __host__ __device__ __forceinline__ uint32_t keepword(uint32_t seed,
   return ge | eq;
 }
 
+// keepword's per-launch constants for one (seed, thr): each round's salted
+// seed, and all ones in the rounds where bit i of thr is clear. Passed by
+// value as a kernel parameter, they are operands from the constant bank:
+// no register holds them and no branch on thr is left in the rounds.
+struct KeepKey {
+  uint32_t salted[8];
+  uint32_t clear[8];
+};
+
+__host__ __device__ inline KeepKey keep_key(uint32_t seed, int thr) {
+  KeepKey k;
+  for (int i = 0; i < 8; ++i) {
+    k.salted[i] = seed + keep_salt(i);
+    k.clear[i] = ((thr >> i) & 1) ? 0u : 0xffffffffu;
+  }
+  return k;
+}
+
+// The seed-free part of keepword, shared by every seed of a (row, word).
+__host__ __device__ __forceinline__ uint32_t keep_base(uint32_t row,
+                                                       uint32_t word) {
+  return (row * kC1) ^ (word * kC2);
+}
+
+// keepword(seed, row, word, thr) from keep_key(seed, thr) and
+// keep_base(row, word): the same rounds, the comparator without branches
+// (a set bit of thr: eq &= h; a clear one: ge |= eq & h, eq &= ~h).
+__host__ __device__ __forceinline__ uint32_t keepword(const KeepKey& k,
+                                                      uint32_t base) {
+  uint32_t ge = 0u, eq = 0xffffffffu;
+#pragma unroll
+  for (int i = 7; i >= 0; --i) {
+    uint32_t h = base ^ k.salted[i];
+    h = (h ^ (h >> 16)) * kC3;
+    h ^= h >> 16;
+    ge |= eq & h & k.clear[i];
+    eq &= h ^ k.clear[i];
+  }
+  return ge | eq;
+}
+
 }  // namespace igcn

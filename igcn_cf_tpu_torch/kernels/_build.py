@@ -35,12 +35,12 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # Launches of each kernel, counted by its wrapper right after a launch that
 # returned no error. A run resets them to show which kernels it went through.
 # K1m/K2m and K6m/K7m are the masked variants of K1/K2 and K6/K7 (edge
-# dropout inside the kernel); T1/T2 are the 4-D gather kernels of
+# dropout inside the kernel), K8p K8's two-seed pair; T1/T2 are the 4-D gather kernels of
 # ``tools/microbench_pcache``, T3/T4 their tuning variants of
 # ``tools/microbench_pcache_tune`` and T5 the gather probe of
 # ``tools/microbench_gather``.
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K6m": 0, "K7m": 0, "K8": 0, "K1m": 0, "K2m": 0, "T1": 0, "T2": 0,
+            "K6m": 0, "K7m": 0, "K8": 0, "K8p": 0, "K1m": 0, "K2m": 0, "T1": 0, "T2": 0,
             "T3": 0, "T4": 0, "T5": 0}
 
 _P = ctypes.c_void_p
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "igcn_bb_bwd_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
     # (wp, out, m, kw, seed, thr, stream)
     "igcn_mask_words": (_P, _P, _I, _I, _U, _I, _P),
+    # (wp, out_a, out_b, m, kw, seed_a, seed_b, thr, stream)
+    "igcn_mask_words_pair": (_P, _P, _P, _I, _I, _U, _U, _I, _P),
     # (p, rows, x0, part, out, n, npad, r, dpad, splits, stream)
     "igcn_gather_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (p, rows, ct, dx, n, npad, r, dpad, stream)

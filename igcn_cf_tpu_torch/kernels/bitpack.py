@@ -30,7 +30,9 @@ kernels (K6m/K7m), as NGCF trains. ``bbt_pair_dropped(wp, x1t, x2t, seed1,
 seed2, p)`` is the transposed pair with the same in-kernel dropout
 (K1m/K2m), which the kernel microbenchmark compares with the premasked
 pair. ``mask_words(wp, seed, p)`` applies the coordinate-hashed keep mask,
-bit-identical to the JAX package.
+bit-identical to the JAX package; ``mask_words_pair(wp, seed_a, seed_b,
+p)`` applies it under two seeds in one pass over the words (K8p), as the
+INMO feature aggregation masks B once for each direction.
 
 X operands are rounded to bf16 and summed in f32, as the JAX kernels do.
 CUDA tensors go to the hand-written kernels in ``csrc/`` (``bbt_pair.cu``,
@@ -494,6 +496,21 @@ def _check_seed(seed) -> int:
     return seed
 
 
+def mask_words_pair_plain(wp: torch.Tensor, seed_a: int, seed_b: int,
+                          p: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mask_words_plain`` under each seed."""
+    return mask_words_plain(wp, seed_a, p), mask_words_plain(wp, seed_b, p)
+
+
+def _check_words(wp: torch.Tensor) -> torch.Tensor:
+    """wp as the mask kernel takes it: a contiguous 2-D int32 tensor whose
+    data is 16-byte aligned (the kernel moves 16 bytes at a time), wp
+    itself where it already is so, else a copy."""
+    if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
+        raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+    return wp.clone() if wp.data_ptr() % 16 else wp
+
+
 def mask_words(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     """The packed words with the coordinate-hashed keep mask applied, for
     edge dropout with probability ``p`` (quantized to 1/256) and a u32
@@ -503,13 +520,29 @@ def mask_words(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     seed = _check_seed(seed)
     if not _build.on_cuda(wp):
         return mask_words_plain(wp, seed, p)
-    if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
-        raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+    wp = _check_words(wp)
     out = torch.empty_like(wp)
     _build.launch("igcn_mask_words", wp, out, wp.shape[0], wp.shape[1], seed,
                   _threshold_u8(p))
     _build.LAUNCHES["K8"] += 1
     return out
+
+
+def mask_words_pair(wp: torch.Tensor, seed_a: int, seed_b: int,
+                    p: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``mask_words(wp, seed_a, p)``, ``mask_words(wp, seed_b, p)``) from
+    one pass over the words: CUDA tensors launch the pair entry of
+    ``csrc/mask_words.cu`` once (K8p, B read once for both copies); CPU
+    tensors take ``mask_words_pair_plain``."""
+    seed_a, seed_b = _check_seed(seed_a), _check_seed(seed_b)
+    if not _build.on_cuda(wp):
+        return mask_words_pair_plain(wp, seed_a, seed_b, p)
+    wp = _check_words(wp)
+    out_a, out_b = torch.empty_like(wp), torch.empty_like(wp)
+    _build.launch("igcn_mask_words_pair", wp, out_a, out_b, wp.shape[0],
+                  wp.shape[1], seed_a, seed_b, _threshold_u8(p))
+    _build.LAUNCHES["K8p"] += 1
+    return out_a, out_b
 
 
 # -- bb_matmul_dropped: the original-layout pair with in-kernel dropout -------

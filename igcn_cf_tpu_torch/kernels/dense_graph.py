@@ -16,7 +16,8 @@ K1/K2) in the transposed (d, n) layout of the JAX package;
 layout through ``bb_matmul`` (K6/K7), as the propagation-cache build does.
 Every operator here is differentiable. Edge dropout draws are explicit
 arguments (``FeatDrop``), drawn by the model: the INMO feature aggregation
-masks B once per direction (``mask_words``), NGCF masks inside K6m/K7m
+masks B once per direction (``mask_words_pair``, one pass for both), NGCF
+masks inside K6m/K7m
 (``bb_matmul_dropped``). The sparse COO backend (``kernels/sparse.py``) is
 not ported.
 """
@@ -39,7 +40,7 @@ from igcn_cf_tpu_torch.kernels.bitpack import (
     bb_matmul_dropped,
     bbt_pair,
     bbt_pair_premasked,
-    mask_words,
+    mask_words_pair,
     pack_interactions,
     pad_to,
     scatter_bits,
@@ -220,18 +221,17 @@ def feat_aggregate(
     directions are one pair call.
 
     With ``dropout`` > 0 and a ``drop`` draw, the user-side and item-side
-    blocks drop edges independently: B is masked once per direction
-    (``mask_words``, two launches) and the pair runs on the masked copies,
-    in the forward and the backward alike; dropped token edges are zeroed,
-    and the rows rescaled by 1/(1-p) with the unquantized p, as in the JAX
-    package."""
+    blocks drop edges independently: B is masked once per direction under
+    its own seed (``mask_words_pair``, one launch that reads B once) and the
+    pair runs on the masked copies, in the forward and the backward alike;
+    dropped token edges are zeroed, and the rows rescaled by 1/(1-p) with
+    the unquantized p, as in the JAX package."""
     x1t = _pad_rows(e_items_full, g.cols_padded).T
     x2t = _pad_rows(e_users_full, g.rows_padded).T
     if dropout > 0.0 and drop is not None:
         scale = 1.0 / (1.0 - dropout)
         y1t, y2t = bbt_pair_premasked(
-            mask_words(g.B, drop.seed_b, dropout),
-            mask_words(g.B, drop.seed_bt, dropout),
+            *mask_words_pair(g.B, drop.seed_b, drop.seed_bt, dropout),
             x1t, x2t,
         )
         xu_t = (y1t[:, : g.n_users]

@@ -9,14 +9,16 @@ Rows, ms per call (CUDA-event median, a fresh mask seed for each call):
 
   old fwd/bwd, unmasked and masked   K6, K7, K6m, K7m (bb_matmul)
   t1/t2 unmasked                     K1, K2 (the transposed pair)
-  mask_words hash                    the K8 counterpart
+  mask_words hash (one seed)         the K8 counterpart
+  mask_words hash (two seeds)        its pair entry K8p (one pass, two
+                                     masked copies)
   mask_words keep rate               kept bits over set bits
   feat_agg fwd / fwd+bwd, dropped    on a 29,858 x 40,981 graph of 833,000
                                      random pairs (numpy seed 0), in three
                                      forms: old-path (K6m/K7m per
                                      direction), bbt-drop (the in-kernel
                                      masked pair K1m/K2m) and premask
-                                     (``feat_aggregate``: two mask_words,
+                                     (``feat_aggregate``: the mask pair,
                                      then K1/K2)
 
 The port's K1/K2/K6/K7 families skip zero words and pay per set bit, so on
@@ -151,6 +153,8 @@ def main(argv=None, device="cuda") -> dict:
     row("t2 (d,K) unmask", lambda: bitpack.t2(wp, x2t))
     row("mask_words hash (one seed)",
         lambda: bitpack.mask_words(wp, seed(), P_DROP))
+    row("mask_words hash (two seeds)",
+        lambda: bitpack.mask_words_pair(wp, seed(), seed(), P_DROP))
     kept = popcount(bitpack.mask_words(wp, 3, P_DROP)) / popcount(wp)
     want = 1 - bitpack._threshold_u8(P_DROP) / 256
     print(f"mask_words keep rate: {kept:.4f} (want {want:.4f}); the TPU's "

@@ -17,7 +17,9 @@ with 20 steps and prints:
   - the medians of its pieces, each timed alone after a synchronize:
     sampling and drop draws, forward (loss), backward, the Adam step;
   - ``torch.profiler`` over 20 steps: the device time of each kernel and
-    copy, their sum, and its share of wall (the device's busy share).
+    copy, their sum, and its share of wall (the device's busy share); the
+    port's kernels carry their ids (K8p: the dropout mask of B under both
+    seeds, one launch a step).
 
 The full profiler tables go to ``--out``.
 """
@@ -33,6 +35,19 @@ import chip_smoke as smoke
 from profile_serve_torch import device_profile
 
 WARMUP, TIMED, PROFILED = 20, 50, 20
+# the port's kernels by their symbols in a profiler row: the ids of
+# chip_smoke.KERNELS (the t1/t2 bodies run K1/K2 on the IGCN paths, K6/K7
+# and their masked variants on NGCF's)
+KERNEL_IDS = (("mask_words_kernel<true>", "K8p"), ("mask_words_kernel<false>", "K8"),
+              ("t1_kernel", "K1/K6"), ("t2_kernel", "K2/K7"),
+              ("sum_splits_kernel", "slab sum"), ("fused_fwd_4d_kernel", "K3"),
+              ("gather_bwd_kernel", "K4"), ("topk_range_kernel", "K5"),
+              ("merge_topk_kernel", "K5 merge"))
+
+
+def kernel_id(name: str) -> str:
+    """The id of the port's kernel a profiler row names, else ""."""
+    return next((kid for sym, kid in KERNEL_IDS if sym in name), "")
 
 
 def scenarios(models):
@@ -119,7 +134,8 @@ def main() -> int:
                          f"profiler: wall {wall:.3f} ms, device {dev:.3f} ms, "
                          f"busy share {dev / wall:.4f}")
             for name, calls, ms in rows[:10]:
-                lines.append(f"#   {ms:9.3f} ms  {calls:4d} x  {name[:80]}")
+                lines.append(f"#   {ms:9.3f} ms  {calls:4d} x  "
+                             f"{kernel_id(name):6s} {name[:80]}")
             del trainer, model
             torch.cuda.empty_cache()
     for line in lines:

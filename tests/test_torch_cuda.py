@@ -290,6 +290,98 @@ def test_mask_words_kernel_is_bit_exact(cuda, shape, seed, p):
     assert torch.equal(got, want)
 
 
+def _mask_case(cuda, m, kw, fill, seed):
+    """(m, kw) int32 words: "zeros", "ones" (every bit set), "dense" (random,
+    every word non-zero) or "sparse" (~3% of the words non-zero, as the
+    training B)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if fill == "zeros":
+        return torch.zeros((m, kw), dtype=torch.int32, device=cuda)
+    if fill == "ones":
+        return torch.full((m, kw), -1, dtype=torch.int32, device=cuda)
+    wp = torch.randint(-2**31, 2**31, (m, kw), generator=gen, device=cuda,
+                       dtype=torch.int64).to(torch.int32)
+    wp[wp == 0] = 1
+    if fill == "sparse":
+        wp[torch.rand((m, kw), generator=gen, device=cuda) >= 0.03] = 0
+    return wp
+
+
+@pytest.mark.parametrize("m,kw,fill", [
+    (1, 1, "dense"), (1, 3, "ones"), (1, 5, "dense"), (1, 1408, "sparse"),
+    (1, 1408, "dense"),
+    (7, 5, "ones"),          # rows that start inside a 16-byte group
+    (333, 3, "dense"),       # m * kw not a multiple of 4
+    (512, 128, "zeros"),
+    (1536, 384, "sparse"),
+    (700, 1408, "sparse"),   # the training B's width and density
+    (2000, 1408, "dense"),   # the dual tool's words, hashed in place
+    (30208, 67, "sparse"),   # high rows, kw odd
+    (4, 300001, "dense"),    # high words
+])
+def test_mask_words_pair_kernel_is_bit_exact(cuda, m, kw, fill):
+    """K8p's two copies and K8's one against mask_words_plain: kw not a
+    multiple of 4, all-zero, all-one, dense and sparse words, high row and
+    word coordinates, seeds at the top of the u32 range; one count a call."""
+    wp = _mask_case(cuda, m, kw, fill, m + kw)
+    seed_a, seed_b, p = 2**32 - 12345, 2**32 - 1, 0.3
+    before = dict(_build.LAUNCHES)
+    got_a, got_b = bitpack.mask_words_pair(wp, seed_a, seed_b, p)
+    got = bitpack.mask_words(wp, seed_b, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K8p"] == before["K8p"] + 1
+    assert _build.LAUNCHES["K8"] == before["K8"] + 1
+    assert torch.equal(got_a, bitpack.mask_words_plain(wp, seed_a, p))
+    want_b = bitpack.mask_words_plain(wp, seed_b, p)
+    assert torch.equal(got_b, want_b) and torch.equal(got, want_b)
+
+
+def test_mask_words_kernels_read_a_misaligned_view(cuda):
+    """Words that start 4 bytes into their storage (the kernel moves 16
+    bytes at a time): the wrappers copy them, and the result is the
+    aligned one."""
+    wp = _mask_case(cuda, 1, 4001, "dense", 3)[0, 1:].view(40, 100)
+    assert wp.data_ptr() % 16
+    want = bitpack.mask_words_plain(wp, 5, 0.5)
+    assert torch.equal(bitpack.mask_words(wp, 5, 0.5), want)
+    assert torch.equal(bitpack.mask_words_pair(wp, 5, 6, 0.5)[0], want)
+
+
+def test_mask_words_pair_refuses_bad_operands(cuda):
+    wp = torch.zeros((512, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bitpack.mask_words_pair(wp.to(torch.int64), 1, 2, 0.3)
+    with pytest.raises(ValueError):
+        bitpack.mask_words_pair(wp.T, 1, 2, 0.3)  # not contiguous
+    with pytest.raises(ValueError):
+        bitpack.mask_words_pair(wp, 1, 2**32, 0.3)
+
+
+def test_igcn_step_makes_one_mask_launch(cuda):
+    """An IGCN BPR step with edge dropout masks B under its two seeds with
+    one K8p launch, and no one-seed K8 launch, on either engine."""
+    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    ds = synthetic_interactions(n_users=300, n_items=500, avg_degree=12, seed=5)
+    model_cfg = {"name": "IGCN", "embedding_size": 64, "n_layers": 2,
+                 "dropout": 0.3, "feature_ratio": 1.0, "graph_backend": "dense"}
+    trainer_cfg = {"name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3,
+                   "l2_reg": 1e-3, "aux_reg": 0.01, "n_epochs": 1,
+                   "batch_size": 256, "topks": [20], "seed": 3}
+    for prop_cache in (True, False):
+        trainer = get_trainer(trainer_cfg, ds, get_model(
+            dict(model_cfg, prop_cache=prop_cache), ds, "cuda"))
+        inputs = trainer.sample_step()
+        before = dict(_build.LAUNCHES)
+        loss = trainer.train_step(*inputs)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(loss))
+        assert _build.LAUNCHES["K8p"] == before["K8p"] + 1, prop_cache
+        assert _build.LAUNCHES["K8"] == before["K8"], prop_cache
+
+
 def _gather_case(cuda, n, r, dup):
     gen = torch.Generator(device=cuda).manual_seed(n + r)
     npad = pcache.pcache_npad(n)

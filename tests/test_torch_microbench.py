@@ -283,7 +283,7 @@ def test_microbench_dual_rows_at_a_tiny_shape(monkeypatch, capsys):
     before = dict(_build.LAUNCHES)
     ms = mdual.main(["8"], device="cpu")
     assert _build.LAUNCHES == before
-    assert len(ms) == 7 + 2 * len(mdual.VARIANTS)
+    assert len(ms) == 8 + 2 * len(mdual.VARIANTS)
     out = capsys.readouterr().out
     rate = float(out.split("mask_words keep rate: ")[1].split()[0])
     assert abs(rate - (1 - 77 / 256)) < 0.01

@@ -82,6 +82,69 @@ def test_mask_words_at_high_coordinates_and_seeds(rng):
         np.testing.assert_array_equal(_u32(got), want)
 
 
+@pytest.mark.parametrize("m,kw,keys", [
+    (7, 5, (3, 4)),        # kw not a multiple of 4: rows start mid-group
+    (33, 3, (21, 2021)),
+    (TM, 130, (0, 1)),
+    (5, 1, (8, 9)),
+])
+def test_mask_words_pair_matches_two_calls_and_jax(rng, m, kw, keys):
+    """The pair's plain counterpart, as CPU tensors take it, is two
+    one-seed calls and JAX ``mask_words`` under each key."""
+    wp = _words(rng, m, kw)
+    wp[rng.random((m, kw)) < 0.5] = 0
+    ka, kb = map(jax.random.PRNGKey, keys)
+    sa, sb = int(jbp._seed_from_key(ka)), int(jbp._seed_from_key(kb))
+    before = dict(_build.LAUNCHES)
+    got = bitpack.mask_words_pair(_t(wp.view(np.int32)), sa, sb, 0.3)
+    assert _build.LAUNCHES == before  # CPU tensors take the plain version
+    for g, seed, key in zip(got, (sa, sb), (ka, kb)):
+        one = bitpack.mask_words(_t(wp.view(np.int32)), seed, 0.3)
+        np.testing.assert_array_equal(_u32(g), _u32(one))
+        np.testing.assert_array_equal(
+            _u32(g), np.asarray(jbp.mask_words(jnp.asarray(wp), key, 0.3)))
+
+
+def test_mask_words_pair_at_seeds_near_2_32(rng):
+    """A tall B of 3 words a row under the two seeds the smoke uses."""
+    wp = _words(rng, 30208, 3)
+    seeds = (2**32 - 12345, 2**32 - 1)
+    got = bitpack.mask_words_pair(_t(wp.view(np.int32)), *seeds, 0.3)
+    for g, seed in zip(got, seeds):
+        want = wp & np.asarray(jbp._keepword(
+            jnp.uint32(seed), jax.lax.broadcasted_iota(jnp.uint32, wp.shape, 0),
+            jax.lax.broadcasted_iota(jnp.uint32, wp.shape, 1), 77))
+        np.testing.assert_array_equal(_u32(g), want)
+
+
+def test_mask_words_pair_seeds_must_be_u32():
+    wp = torch.zeros((TM, 128), dtype=torch.int32)
+    for seeds in ((-1, 0), (0, 2**32)):
+        with pytest.raises(ValueError):
+            bitpack.mask_words_pair(wp, *seeds, 0.3)
+
+
+def test_feat_aggregate_masks_b_in_one_pair_call(tiny_ds, monkeypatch):
+    """The dropped feature aggregation masks B once for both directions,
+    through one ``mask_words_pair`` call under the draw's two seeds."""
+    g, _ = _graphs(tiny_ds)
+    calls = []
+
+    def pair(wp, seed_a, seed_b, p):
+        calls.append((seed_a, seed_b))
+        return bitpack.mask_words_pair(wp, seed_a, seed_b, p)
+
+    monkeypatch.setattr(dense_graph, "mask_words_pair", pair)
+    n_u, n_i, d = tiny_ds.n_users, tiny_ds.n_items, 8
+    drop = FeatDrop(5, 2**32 - 6, torch.ones(n_u, dtype=torch.bool),
+                    torch.ones(n_i, dtype=torch.bool))
+    dense_graph.feat_aggregate(
+        g, torch.randn(n_i, d), torch.randn(n_u, d), torch.randn(d),
+        torch.randn(d), torch.rand(n_u), torch.rand(n_i), dropout=0.3,
+        drop=drop)
+    assert calls == [(5, 2**32 - 6)]
+
+
 @pytest.mark.parametrize("n_rows,n_cols,seed,p", [(40, 4096, 5, 0.3),
                                                   (7, 8192 + 300, 2**32 - 3, 0.7)])
 def test_keep_mask_dense_bit_exact_vs_jax(n_rows, n_cols, seed, p):
