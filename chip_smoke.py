@@ -76,12 +76,13 @@ Phases, each fatal on failure:
      versions and against K3/K4 on the same P (T1 bit-equal to K3, its
      NJ-free case); T1's launch shape, its time
      at column splits S 1, 2, 4, the chosen S and the largest, and its
-     device-only time by torch.profiler; on that P too, T3 (the tune
+     device-only time (calls queued back to back); on that P too, T3 (the tune
      tool's forward, X0 per stage and X0 kept in L2) against its plain
      version and, in both variants, bit-equal to T1 at every NJ and TR of
      the tune grid, T1 there against the plain version, with device-only
-     times; and T4 (its backward, written
-     as dX0^T) against its plain version and T2 transposed, deterministic;
+     times; and T4 (its backward, written as dX0^T, K4's body) against
+     its plain version and T2 transposed, bit-equal to K4 transposed at
+     every NJ and TR of the tune grid with its launch shape, deterministic;
      T5 (the
      gather probe) bit-equal to its plain version at each of the gather
      tool's cases. With that P freed, the four tools' ``main()``
@@ -188,8 +189,8 @@ KERNELS = {
     "T3": ("fwd_tune: P4[rows] @ X0, X0 kept in L2 (resident_x0)",
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu",
            "tools/microbench_pcache_tune.py:74"),
-    "T4": ("bwd_t: ct^T @ P4[rows], the (d, npad) transpose of T2",
-           "igcn_cf_tpu_torch/csrc/pcache_4d.cu",
+    "T4": ("bwd_t: ct^T @ P4[rows], K4's body with a transposed store",
+           "igcn_cf_tpu_torch/csrc/pcache.cu",
            "tools/microbench_pcache_tune.py:160"),
     "T5": ("gather_chain: reps row gathers from a shared-memory stripe",
            "igcn_cf_tpu_torch/csrc/gather_probe.cu",
@@ -625,7 +626,7 @@ def check_mask(words, label, seed_a, seed_b, p):
         log(f"# {name} over {label} {m}x{kw} words, seeds {seed_a}"
             + (f", {seed_b}" if name == "K8p" else "") + f", p={p}: bit-equal "
             f"to mask_words_plain; {out[name]['ms']:.4f} ms by events, "
-            f"{dev:.4f} ms on the device (torch.profiler), plain "
+            f"{dev:.4f} ms on the device (queued), plain "
             f"{out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({streams} streams of {nbytes / 1e6:.1f} MB, "
             f"{out[name]['bound_by']})")
@@ -1040,7 +1041,7 @@ def check_gather(trainer):
         dev = device_ms(lambda: kern(p, rows, x))
         log(f"# {name} R={r} on P {tuple(p.shape)}: max_abs_err "
             f"{out[name]['max_abs_err']:.3g}, {out[name]['ms']:.4f} ms by events, "
-            f"{dev:.4f} ms on the device (torch.profiler, body and any slab sum) "
+            f"{dev:.4f} ms on the device (queued, body and any slab sum) "
             f"vs plain {out[name]['plain_ms']:.4f} ms, index_select + bf16 matmul "
             f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({out[name]['bound_by']})")
@@ -1389,23 +1390,16 @@ def check_fused_4d(inputs):
     return out
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device-only milliseconds of one ``fn()`` call: the CUDA activities of
-    ``calls`` calls under torch.profiler, summed, over ``calls``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, calls: int = 20) -> float:
+    """Device-only milliseconds of one ``fn()`` call: ``calls`` calls queued
+    back to back behind a sleep kernel (``utils.timing.queued_cuda_ms``),
+    so the host's launches between calls are hidden. torch.profiler's
+    device totals are not used: late in this script they dropped kernel
+    records, reading T1 at 0.25 ms on the device against its 0.2765 ms
+    bound (H100 80GB HBM3)."""
+    from igcn_cf_tpu_torch.utils.timing import queued_cuda_ms
 
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync()
-    total = sum(evt.self_device_time_total for evt in prof.key_averages()
-                if evt.device_type == torch.autograd.DeviceType.CUDA)
-    if not total > 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return total / 1e3 / calls
+    return queued_cuda_ms(fn, reps=calls)
 
 
 def check_fwd_splits(p4, rows, x0, events_ms):
@@ -1439,17 +1433,20 @@ def check_fwd_splits(p4, rows, x0, events_ms):
     dev = device_ms(lambda: mpc.fused_fwd_4d(p4, rows, x0b, tr))
     log(f"# T1 (TR {tr}) ms by column splits, each within GATHER_RTOL of the "
         f"plain version: {', '.join(times)}; at the chosen S {events_ms:.4f} ms "
-        f"by events, {dev:.4f} ms on the device (torch.profiler, body and slab sum)")
+        f"by events, {dev:.4f} ms on the device (queued, body and slab sum)")
 
 
-def check_tune_grid(p, rows, x0b):
+def check_tune_grid(p, rows, x0b, ctb):
     """T3 in both variants at every NJ and TR of the tune tool's forward
     grid (its (NJ, TR, resident_x0) rows and the other variant beside
     each), on the tool's P: T1 at that (NJ, TR) within GATHER_RTOL of the
     plain version (S and its split bounds move with TR), T3 bit-equal to
-    it, and each one's device-only time."""
+    it, and each one's device-only time. Then T4 at every (NJ, TR) row of
+    the backward grid bit-equal to K4 on the same memory, transposed, with
+    its launch shape and device-only time."""
     import torch
 
+    from igcn_cf_tpu_torch.kernels import pcache
     from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
     from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
 
@@ -1473,7 +1470,22 @@ def check_tune_grid(p, rows, x0b):
         f"and TR {tuple(trs)} of the tune grid on the tool's P, max_abs_err "
         f"(outputs up to {float(want.abs().max()):.4g}): {', '.join(errs)}; T3 "
         f"in both variants bit-equal to T1 at each; device-only ms a call "
-        f"(torch.profiler): {', '.join(dev)}")
+        f"(queued): {', '.join(dev)}")
+    del want
+    k4 = pcache.gather_bwd(p, rows, ctb).T  # K4 on the row-major P
+    npad, d, rows_out = p.shape[1], ctb.shape[1], []
+    for nj in mpt.NJS:
+        p4 = mpc.to4d(p, nj)
+        for tr in mpt.BWD_TRS:
+            if not torch.equal(mpt.bwd_t(p4, rows, ctb, tr), k4):
+                raise AssertionError(f"T4 nj={nj} tr={tr} differs from K4 "
+                                     "transposed")
+            ms = device_ms(lambda: mpt.bwd_t(p4, rows, ctb, tr))
+            rows_out.append(f"nj={nj} tr={tr} {ms:.4f} ms ("
+                            f"{mpt.bwd_t_launch_line(npad, d, tr, 'cuda')})")
+    log(f"# T4 bit-equal to K4 transposed at every NJ {mpt.NJS} and TR "
+        f"{mpt.BWD_TRS} of the tune grid on the tool's P; device-only ms a "
+        f"call (queued) and launch: {'; '.join(rows_out)}")
 
 
 def check_tune(inputs):
@@ -1481,9 +1493,11 @@ def check_tune(inputs):
     pcache tool's TR and NJ: T3 against its plain version and bit-equal to
     T1 (the two variants differ only in L2 policy) there and at every row
     of the tune grid, T4 against its plain version and T2 transposed,
+    bit-equal to K4 transposed there and at every row of the tune grid,
     deterministic."""
     import torch
 
+    from igcn_cf_tpu_torch.kernels import pcache
     from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
     from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
     from igcn_cf_tpu_torch.utils.timing import cuda_ms
@@ -1516,7 +1530,7 @@ def check_tune(inputs):
         f"{out['T3']['library_ms']:.4f} ms, bound {out['T3']['bound_ms']:.4f} ms "
         f"({out['T3']['bound_by']})")
     del fwd, t1, want
-    check_tune_grid(p, rows, x0b)
+    check_tune_grid(p, rows, x0b, ctb)
 
     got = mpt.bwd_t(p4, rows, ctb, tr)
     want = mpt.bwd_t_plain(p4, rows, ctb)
@@ -1526,16 +1540,23 @@ def check_tune(inputs):
     diff = assert_close_scaled(got, t2.T)
     if not torch.equal(got, mpt.bwd_t(p4, rows, ctb, tr)):
         raise AssertionError("T4 is not deterministic")
+    if not torch.equal(got, pcache.gather_bwd(p, rows, ctb).T):
+        raise AssertionError("T4 differs from K4 transposed")
     t2_ms = cuda_ms(lambda: mpc.fused_bwd_4d(p4, rows, ctb, tr))
+    k4_ms = cuda_ms(lambda: pcache.gather_bwd(p, rows, ctb))
     out["T4"] = {"max_abs_err": err,
                  "ms": cuda_ms(lambda: mpt.bwd_t(p4, rows, ctb, tr)),
                  "plain_ms": cuda_ms(lambda: mpt.bwd_t_plain(p4, rows, ctb),
                                      reps=5),
                  "library_ms": cuda_ms(lambda: ctb.T @ p.index_select(0, rows)),
                  **gather_bound(r, npad, d, ctb.numel() * 2, got.numel() * 4)}
-    log(f"# T4 on the same P: max_abs_err {err:.3g} (outputs up to "
-        f"{float(want.abs().max()):.4g}), max diff to T2^T {diff:.3g}, "
-        f"deterministic; {out['T4']['ms']:.4f} ms vs T2 {t2_ms:.4f} ms, plain "
+    dev = device_ms(lambda: mpt.bwd_t(p4, rows, ctb, tr))
+    log(f"# T4 on the same P (TR {tr}, NJ {mpc.NJ}; "
+        f"{mpt.bwd_t_launch_line(npad, d, tr, 'cuda')}): max_abs_err {err:.3g} "
+        f"(outputs up to {float(want.abs().max()):.4g}), max diff to T2^T "
+        f"{diff:.3g}, bit-equal to K4 transposed, deterministic; "
+        f"{out['T4']['ms']:.4f} ms by events ({dev:.4f} on the device) vs K4 "
+        f"{k4_ms:.4f} ms, T2 {t2_ms:.4f} ms, plain "
         f"{out['T4']['plain_ms']:.4f} ms, ct^T @ index_select "
         f"{out['T4']['library_ms']:.4f} ms, bound {out['T4']['bound_ms']:.4f} ms "
         f"({out['T4']['bound_by']})")

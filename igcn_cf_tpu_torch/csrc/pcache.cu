@@ -1,12 +1,16 @@
-// K4: the propagation cache's backward gather-matmul, dX0 = P[rows]^T @ ct.
-// K3, its forward (reps = P[rows] @ X0), is the NJ-free case of T1's body:
-// its C entry igcn_gather_fwd sits beside that body in pcache_4d.cu.
+// K4: the propagation cache's backward gather-matmul, dX0 = P[rows]^T @ ct,
+// and T4, the tune tool's transposed form of it. K3, the cache's forward
+// (reps = P[rows] @ X0), is the NJ-free case of T1's body: its C entry
+// igcn_gather_fwd sits beside that body in pcache_4d.cu.
 //
-// Replaces the TPU kernel igcn_cf_tpu/kernels/pcache.py::_fused_bwd (K4;
-// K3 replaces ::_fused_fwd):
+// Replaces the TPU kernels igcn_cf_tpu/kernels/pcache.py::_fused_bwd (K4;
+// K3 replaces ::_fused_fwd) and tools/microbench_pcache_tune.py::bwd_t
+// (T4):
 //
 //   K4  dX0 (npad, d) = P[rows]^T @ ct    P (n, npad) bf16, ct (R, d) bf16;
 //                                          duplicate rows sum
+//   T4  dX0^T (d, npad) = ct^T @ P4[rows] P4 (n, NJ, sub, 128) bf16: the
+//                                          same memory as the row-major P
 //
 // with f32 sums and without ever writing P[rows] to device memory. P is
 // stored row-major; the JAX package's 4-D slab layout and its 4096-column
@@ -62,6 +66,22 @@
 // transposed shared tile, read with ldmatrix.trans. A row id outside
 // [0, n) and a row past R read as zeros; npad is a multiple of 64, so a
 // warp's 32 columns of the last tile are all inside P or all outside.
+//
+// T4 is this body with a transposed epilogue (TRANS_OUT): the same sums,
+// each stored at (feature, column) of the (d, npad) output instead of
+// (column, feature), so T4's result is K4's transposed, bit for bit. The
+// TPU tool's TR (gathered rows a grid step) maps to the rows of a ring
+// stage where such stages fit 2 blocks an SM: TR 32 runs 4 stages of 32
+// rows, TR 64 2 stages of 64 (each ~103 KB of shared memory); 128-row
+// stages would need 205 KB a block for two of them, so TR 128, and every
+// other TR, runs K4's own 5 stages of 16 rows. The rows of a stage change
+// neither the sums nor their order (each k16 step is folded on its own),
+// so every TR gives the same bits. The store needs no shared memory: for
+// each of its 64 stores a warp writes 4 features x 8 consecutive columns,
+// whole 32-byte sectors, and the output (18 MB at the tool's shape) is
+// ~2% of the bytes the pass moves. A 2-stage ring of 64-row stages keeps
+// one stage in flight and waits on each: TR 64 is the slow row (H100
+// 80GB HBM3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,19 +103,23 @@ constexpr int kWarpCols = 32;              // columns of dX0 a warp owns
 constexpr int kWarps = 10;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCols = kWarps * kWarpCols;  // 320 columns a block
-constexpr int kRows = 16;                  // gathered rows a stage
-constexpr int kStages = 5;                 // ring depth
-constexpr int kAhead = kStages - 1;        // stages in flight
-// stages of row ids in smem: load(t) reads slot t and fills slot t + kAhead
-// (mod 2 kAhead), which neither the prologue's loads (slots 0 .. kAhead - 1,
-// no barrier between them) nor the loop's (one barrier a stage) read while
-// it may run
-constexpr int kIdRing = 2 * kAhead;
 constexpr int kLdP = kCols + 8;            // padded smem row of P, in bf16
 constexpr int kLdC = kDTile + 8;           // padded smem row of ct
 constexpr int kMinBlocks = 2;              // blocks an SM the design needs
-constexpr int kStageBytes = kRows * (kLdP + kLdC) * 2;
-constexpr int kSmem = kStages * kStageBytes + kIdRing * kRows * 4;
+
+// A ring of STAGES stages of ROWS gathered rows (K4: 5 x 16).
+template <int ROWS, int STAGES>
+struct Ring {
+  static_assert(ROWS % 16 == 0 && STAGES >= 2, "k16 steps, one stage ahead");
+  static constexpr int kAhead = STAGES - 1;  // stages in flight
+  // stages of row ids in smem: load(t) reads slot t and fills slot t +
+  // kAhead (mod 2 kAhead), which neither the prologue's loads (slots 0 ..
+  // kAhead - 1, no barrier between them) nor the loop's (one barrier a
+  // stage) read while it may run
+  static constexpr int kIdRing = 2 * kAhead;
+  static constexpr int kStageBytes = ROWS * (kLdP + kLdC) * 2;
+  static constexpr int kSmem = STAGES * kStageBytes + kIdRing * ROWS * 4;
+};
 
 // Copy `bytes` (0-16) from device memory to shared memory and zero the rest
 // of the 16; with 0 bytes gmem is not read.
@@ -106,13 +130,18 @@ __device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
-// dx (npad, dpad) = P[rows]^T @ ct. Block x owns the columns [320 x,
-// 320 x + 320), block y the features [64 y, 64 y + 64); warp w owns the
-// columns 320 x + 32 w + [0, 32).
+// dx (npad, dpad) = P[rows]^T @ ct, or with TRANS_OUT its transpose dx
+// (dpad, npad). Block x owns the columns [320 x, 320 x + 320), block y the
+// features [64 y, 64 y + 64); warp w owns the columns 320 x + 32 w + [0,
+// 32). The rows walk in stages of ROWS through a ring of STAGES.
+template <int ROWS, int STAGES, bool TRANS_OUT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
                   const bf16* __restrict__ ct, float* __restrict__ dx,
                   int n, int npad, int r_tot, int dpad) {
+  using R = Ring<ROWS, STAGES>;
+  constexpr int kRows = ROWS, kStages = STAGES, kAhead = R::kAhead,
+                kIdRing = R::kIdRing;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sP = reinterpret_cast<bf16*>(smem);  // [kStages][kRows][kLdP]
   bf16* sC = sP + kStages * kRows * kLdP;    // [kStages][kRows][kLdC]
@@ -130,7 +159,7 @@ gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
     cp_async16_n(sId + (t % kIdRing) * kRows + 4 * j,
                  rows + (bytes ? r : 0), bytes);
   };
-  // stage t into ring buffer t % kStages: rows 16 t + [0, 16) of P
+  // stage t into ring buffer t % kStages: rows kRows t + [0, kRows) of P
   // (columns col0 + [0, 320)) and of ct (features d0 + [0, 64)); and the ids
   // of stage t + kAhead, which the copies of stage t + kAhead read
   auto load = [&](int t) {
@@ -210,6 +239,8 @@ gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
   }
   cp_async_wait<0>();
 
+  // the sums go straight from registers to device memory: no shared memory
+  // is written after the loop, so nothing here races with the ring
   if (col0 + wc >= npad) return;  // a warp past the last column of P
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -219,8 +250,14 @@ gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const size_t c = col0 + wc + mt * 16 + g + h * 8;
-        *reinterpret_cast<float2*>(dx + c * dpad + d0 + j * 8 + t * 2) =
-            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+        const int f = d0 + j * 8 + t * 2;  // features f and f + 1
+        if constexpr (TRANS_OUT) {
+          dx[(size_t)f * npad + c] = acc[mt][j][2 * h];
+          dx[(size_t)(f + 1) * npad + c] = acc[mt][j][2 * h + 1];
+        } else {
+          *reinterpret_cast<float2*>(dx + c * dpad + f) =
+              make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+        }
       }
     }
   }
@@ -231,34 +268,68 @@ bool bad_shape(int n, int npad, int r_tot, int dpad) {
          dpad < kDTile || dpad % kDTile;
 }
 
-// Blocks of the body an SM holds, as the runtime's occupancy calculator
+// Blocks of an instance an SM holds, as the runtime's occupancy calculator
 // reports it (0 when the query fails).
-int bwd_blocks_per_sm() {
+template <int ROWS, int STAGES, bool TRANS_OUT>
+int blocks_per_sm() {
+  constexpr int smem = Ring<ROWS, STAGES>::kSmem;
   int blocks = 0;
-  if (cudaFuncSetAttribute(gather_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, gather_bwd_kernel, kThreads, kSmem) != cudaSuccess)
+  auto kernel = gather_bwd_kernel<ROWS, STAGES, TRANS_OUT>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                    smem) != cudaSuccess)
     return 0;
   return blocks;
+}
+
+// An instance's launch at this shape, d padded to a multiple of 64: grid x
+// (column tiles), grid y (feature tiles), threads a block, shared-memory
+// bytes a block, ring stages, rows a stage and blocks an SM.
+template <int ROWS, int STAGES, bool TRANS_OUT>
+void launch_shape(int npad, int d, int* shape) {
+  shape[0] = (npad + kCols - 1) / kCols;
+  shape[1] = (d + kDTile - 1) / kDTile;
+  shape[2] = kThreads;
+  shape[3] = Ring<ROWS, STAGES>::kSmem;
+  shape[4] = STAGES;
+  shape[5] = ROWS;
+  shape[6] = blocks_per_sm<ROWS, STAGES, TRANS_OUT>();
+}
+
+template <int ROWS, int STAGES, bool TRANS_OUT>
+int launch(const void* p, const void* rows, const void* ct, void* dx, int n,
+           int npad, int r_tot, int dpad, void* stream) {
+  constexpr int smem = Ring<ROWS, STAGES>::kSmem;
+  auto kernel = gather_bwd_kernel<ROWS, STAGES, TRANS_OUT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((npad + kCols - 1) / kCols, dpad / kDTile);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(p), static_cast<const int*>(rows),
+      static_cast<const bf16*>(ct), static_cast<float*>(dx), n, npad, r_tot,
+      dpad);
+  return (int)cudaGetLastError();
+}
+
+bool bad_t4_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
+  return n < 1 || nj < 1 || tkc < 128 || tkc % 128 ||
+         (long long)nj * tkc > INT32_MAX || r_tot < 0 || dpad < kDTile ||
+         dpad % kDTile || tr < 16 || tr > 256 || tr % 16;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K4's launch at this shape, d padded to a multiple of 64 as the wrapper
-// does: writes grid x (column tiles), grid y (feature tiles), threads a
-// block, shared-memory bytes a block, ring stages and blocks an SM (the
-// runtime's occupancy).
+// K4's launch at this shape: grid x, grid y, threads, shared bytes,
+// stages, blocks an SM.
 void igcn_gather_bwd_launch_shape(int npad, int d, int* shape) {
-  shape[0] = (npad + kCols - 1) / kCols;
-  shape[1] = (d + kDTile - 1) / kDTile;
-  shape[2] = kThreads;
-  shape[3] = kSmem;
-  shape[4] = kStages;
-  shape[5] = bwd_blocks_per_sm();
+  int full[7];
+  launch_shape<16, 5, false>(npad, d, full);
+  for (int i = 0; i < 5; ++i) shape[i] = full[i];
+  shape[5] = full[6];
 }
 
 // p (n, npad) bf16; rows (r_tot,) int32, 16-byte aligned; ct (r_tot, dpad)
@@ -269,16 +340,38 @@ int igcn_gather_bwd(const void* p, const void* rows, const void* ct,
   if (bad_shape(n, npad, r_tot, dpad) ||
       reinterpret_cast<uintptr_t>(rows) % 16)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((npad + kCols - 1) / kCols, dpad / kDTile);
-  gather_bwd_kernel<<<grid, kThreads, kSmem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(p), static_cast<const int*>(rows),
-      static_cast<const bf16*>(ct), static_cast<float*>(dx), n, npad, r_tot,
-      dpad);
-  return (int)cudaGetLastError();
+  return launch<16, 5, false>(p, rows, ct, dx, n, npad, r_tot, dpad, stream);
+}
+
+// T4's launch at TR tr: grid x, grid y, threads, shared bytes, stages,
+// rows a stage, blocks an SM. TR takes (rows a stage, stages) (32, 4) at
+// 32, (64, 2) at 64, else K4's (16, 5); igcn_fused_bwd_t below alike.
+void igcn_fused_bwd_t_launch_shape(int npad, int d, int tr, int* shape) {
+  switch (tr) {
+    case 32: return launch_shape<32, 4, true>(npad, d, shape);
+    case 64: return launch_shape<64, 2, true>(npad, d, shape);
+    default: return launch_shape<16, 5, true>(npad, d, shape);
+  }
+}
+
+// T4: p4 (n, nj, tkc / 128, 128) bf16, the row-major (n, nj * tkc) P;
+// rows (r_tot,) int32, 16-byte aligned; ct (r_tot, dpad) bf16; dxt (dpad,
+// nj * tkc) f32.
+int igcn_fused_bwd_t(const void* p4, const void* rows, const void* ct,
+                     void* dxt, int n, int nj, int tkc, int r_tot, int dpad,
+                     int tr, void* stream) {
+  if (bad_t4_shape(n, nj, tkc, r_tot, dpad, tr) ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int npad = nj * tkc;
+  switch (tr) {
+    case 32:
+      return launch<32, 4, true>(p4, rows, ct, dxt, n, npad, r_tot, dpad, stream);
+    case 64:
+      return launch<64, 2, true>(p4, rows, ct, dxt, n, npad, r_tot, dpad, stream);
+    default:
+      return launch<16, 5, true>(p4, rows, ct, dxt, n, npad, r_tot, dpad, stream);
+  }
 }
 
 }  // extern "C"

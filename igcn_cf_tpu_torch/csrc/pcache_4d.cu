@@ -1,14 +1,16 @@
-// T1-T4: the 4-D fused gather kernels of the propagation-cache
+// T1-T3: the 4-D fused gather kernels of the propagation-cache
 // microbenchmarks, forward and backward of out = P[rows] @ X0.
 //
 // Replaces the TPU kernels tools/microbench_pcache.py::fused_fwd_4d (T1)
-// and ::fused_bwd_4d (T2), and tools/microbench_pcache_tune.py::fwd (T3)
-// and ::bwd_t (T4):
+// and ::fused_bwd_4d (T2), and tools/microbench_pcache_tune.py::fwd (T3):
 //
 //   T1  out (R, d)    = P4[rows] @ X0     P4 (n, NJ, sub, 128) bf16, X0 (npad, d) bf16
 //   T2  dX0 (npad, d) = P4[rows]^T @ ct   ct (R, d) bf16; duplicate rows sum
 //   T3  T1's product, with X0 kept in L2 on request (resident_x0)
-//   T4  dX0^T (d, npad) = ct^T @ P4[rows]
+//
+// T4 (tools/microbench_pcache_tune.py::bwd_t, dX0^T (d, npad) = ct^T @
+// P4[rows]) is K4's body with a transposed epilogue: its entry
+// igcn_fused_bwd_t sits beside that body in pcache.cu.
 //
 // with npad = NJ * tkc, tkc = sub * 128, and f32 sums. P4 is the row-major
 // (n, npad) matrix seen as NJ column slabs of tkc columns per row: the same
@@ -17,8 +19,8 @@
 // What bounds them on the H100. At the tool's shape (n = 70,839, npad =
 // 73,728, R = 6,144, d = 64) one pass over the gathered rows is R * npad *
 // 2 B = 906 MB, 0.270 ms at the data sheet's 3.35 TB/s, against 2 * R *
-// npad * d = 5.8e10 FLOP, 0.059 ms at 989 TFLOP/s bf16: all four kernels are
-// bound by the P stream. They multiply on the tensor cores with mma.sync
+// npad * d = 5.8e10 FLOP, 0.059 ms at 989 TFLOP/s bf16: all three kernels
+// are bound by the P stream. They multiply on the tensor cores with mma.sync
 // m16n8k16 (bf16 in, f32 sums), fed by cp.async rings (helpers in
 // mma_sync.cuh).
 //
@@ -77,17 +79,6 @@
 // order: deterministic. The A operand is the gathered P tile read
 // transposed with ldmatrix.trans, as in K4.
 //
-// T4 is the TPU tool's second backward: its Mosaic transposed each (128,
-// 128) P sub-tile for T2's dim-0 contraction, so it moved the transpose
-// onto the small ct block and wrote dX0^T. T4 keeps T2's grid and stages,
-// but its block's tile is (64 features x 128 columns) of the (d, npad)
-// output: A = ct^T (features x rows, ldmatrix.trans of the ct stage) and B
-// = the gathered P tile as stored (rows x columns). On mma.sync a transpose
-// costs nothing either way (ldmatrix reads 8 x 8 tiles with or without
-// .trans at one rate), so the two layouts differ in the output alone: T4
-// stores along npad, T2 along d. Rows in order, one writer per output:
-// deterministic.
-//
 // A row id outside [0, n) and a row past R read as zeros. d is padded by
 // the wrapper to a multiple of 64; each 64-wide feature tile is a grid
 // column of its own.
@@ -111,7 +102,7 @@ using igcn::ldsm_x4_t;
 using igcn::mma16816;
 
 constexpr int kDTile = 64;              // features per block
-constexpr int kChunk = 64;              // T1 columns a stage, T4 a warp
+constexpr int kChunk = 64;              // T1 columns a stage
 constexpr int kLd = 64 + 8;             // padded smem row of a 64-wide tile
 constexpr int kStages = 3;              // T1/T3 ring depth
 constexpr int kColTile = 128;           // T2 columns of P per block
@@ -123,9 +114,9 @@ constexpr int kK3Tr = 128;              // K3's rows a block
 
 // One k16 step of a warp's 16 x 64 output tile: acc += A (16 x 16) @ B
 // (16 x 64). A(m, k) is sA[(m0 + m) * LDA + k0 + k], or with A_TRANS
-// sA[(k0 + k) * LDA + m0 + m]; B(k, n) is sB[(k0 + k) * LDB + n]. The
+// sA[(k0 + k) * LDA + m0 + m]; B(k, n) is sB[(k0 + k) * kLd + n]. The
 // padded pitches put the 8 row addresses of an ldmatrix in distinct banks.
-template <bool A_TRANS, int LDA, int LDB = kLd>
+template <bool A_TRANS, int LDA>
 __device__ __forceinline__ void mma_k16(float (&acc)[8][4], const bf16* sA,
                                         const bf16* sB, int m0, int k0,
                                         int lane) {
@@ -139,7 +130,7 @@ __device__ __forceinline__ void mma_k16(float (&acc)[8][4], const bf16* sA,
 #pragma unroll
   for (int np = 0; np < kDTile / 16; ++np) {
     uint32_t b[4];
-    ldsm_x4_t(b, sB + (k0 + (lane % 16)) * LDB + np * 16 + (lane / 16) * 8);
+    ldsm_x4_t(b, sB + (k0 + (lane % 16)) * kLd + np * 16 + (lane / 16) * 8);
     mma16816(acc[2 * np], a, b[0], b[1]);
     mma16816(acc[2 * np + 1], a, b[2], b[3]);
   }
@@ -277,7 +268,7 @@ fused_fwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
              r_tot, dpad, d0, lane);
 }
 
-// One TR-row stage of T2/T4: columns [col0, col0 + 128) of the gathered
+// One TR-row stage of T2: columns [col0, col0 + 128) of the gathered
 // rows rb + [0, tr) into ps (pitch kLdP) and the features [d0, d0 + 64) of
 // the same rows of ct into cs (pitch kLd), as one cp.async group. Rows past
 // r_tot and ids outside [0, n) read as zeros.
@@ -304,14 +295,10 @@ __device__ __forceinline__ void load_col_stage(
   cp_async_commit();
 }
 
-// T2 (TRANS_OUT false): dx (npad, dpad) = P4[rows]^T @ ct; warp w owns the
-// columns col0 + 16 w + [0, 16) and the block's 64 features.
-// T4 (TRANS_OUT true): dxt (dpad, npad) = ct^T @ P4[rows]; warp w owns the
-// features d0 + 16 (w % 4) + [0, 16) and the columns col0 + 64 (w / 4) +
-// [0, 64).
-// Block x owns the 128 columns [128 x, 128 x + 128) of P (inside one slab,
-// since tkc is a multiple of 128), block y the features [64 y, 64 y + 64).
-template <bool TRANS_OUT>
+// T2: dx (npad, dpad) = P4[rows]^T @ ct; warp w owns the columns col0 + 16
+// w + [0, 16) and the block's 64 features. Block x owns the 128 columns
+// [128 x, 128 x + 128) of P (inside one slab, since tkc is a multiple of
+// 128), block y the features [64 y, 64 y + 64).
 __global__ void __launch_bounds__(kT2Threads)
 fused_bwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
                     const bf16* __restrict__ ct, float* __restrict__ dx,
@@ -343,23 +330,13 @@ fused_bwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
     const bf16* cs = sC + (s % 2) * tr * kLd;
     float part[8][4] = {};
     for (int k0 = 0; k0 < tr; k0 += 16) {  // gathered rows in order
-      if constexpr (TRANS_OUT) {
-        mma_k16<true, kLd, kLdP>(part, cs, ps + (warp / 4) * kChunk,
-                                 (warp % 4) * 16, k0, lane);
-      } else {
-        mma_k16<true, kLdP>(part, ps, cs, warp * 16, k0, lane);
-      }
+      mma_k16<true, kLdP>(part, ps, cs, warp * 16, k0, lane);
     }
     fold(acc, part);
     __syncthreads();
   }
-  if constexpr (TRANS_OUT) {
-    store_tile(acc, dx, d0 + (warp % 4) * 16, dpad, (int)npad,
-               (int)col0 + (warp / 4) * kChunk, lane);
-  } else {
-    store_tile(acc, dx, (long long)col0 + warp * 16, (long long)npad, dpad,
-               d0, lane);
-  }
+  store_tile(acc, dx, (long long)col0 + warp * 16, (long long)npad, dpad, d0,
+             lane);
 }
 
 bool bad_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
@@ -444,7 +421,6 @@ int launch_fwd(const void* p4, const void* rows, const void* x0, void* part,
                                    r_tot, dpad, tr, splits, stream);
 }
 
-template <bool TRANS_OUT>
 int launch_bwd(const void* p4, const void* rows, const void* ct, void* dx,
                int n, int nj, int tkc, int r_tot, int dpad, int tr,
                void* stream) {
@@ -452,12 +428,11 @@ int launch_bwd(const void* p4, const void* rows, const void* ct, void* dx,
     return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(tr);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_4d_kernel<TRANS_OUT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_bwd_4d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((size_t)nj * tkc / kColTile), dpad / kDTile);
-  fused_bwd_4d_kernel<TRANS_OUT><<<grid, kT2Threads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  fused_bwd_4d_kernel<<<grid, kT2Threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(p4), static_cast<const int*>(rows),
       static_cast<const bf16*>(ct), static_cast<float*>(dx), n, nj, tkc,
       r_tot, dpad, tr);
@@ -544,16 +519,7 @@ int igcn_fused_fwd_tune(const void* p4, const void* rows, const void* x0,
 int igcn_fused_bwd_4d(const void* p4, const void* rows, const void* ct,
                       void* dx, int n, int nj, int tkc, int r_tot, int dpad,
                       int tr, void* stream) {
-  return launch_bwd<false>(p4, rows, ct, dx, n, nj, tkc, r_tot, dpad, tr,
-                           stream);
-}
-
-// T4: igcn_fused_bwd_4d's operands; dxt (dpad, nj * tkc) f32.
-int igcn_fused_bwd_t(const void* p4, const void* rows, const void* ct,
-                     void* dxt, int n, int nj, int tkc, int r_tot, int dpad,
-                     int tr, void* stream) {
-  return launch_bwd<true>(p4, rows, ct, dxt, n, nj, tkc, r_tot, dpad, tr,
-                          stream);
+  return launch_bwd(p4, rows, ct, dx, n, nj, tkc, r_tot, dpad, tr, stream);
 }
 
 }  // extern "C"

@@ -35,13 +35,13 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # Launches of each kernel, counted by its wrapper right after a launch that
 # returned no error. A run resets them to show which kernels it went through.
 # K1m/K2m and K6m/K7m are the masked variants of K1/K2 and K6/K7 (edge
-# dropout inside the kernel), K8p K8's two-seed pair; T1/T2 are the 4-D gather kernels of
-# ``tools/microbench_pcache``, T3/T4 their tuning variants of
-# ``tools/microbench_pcache_tune`` and T5 the gather probe of
+# dropout inside the kernel), K8p is K8's two-seed pair; T1/T2 are the 4-D
+# gather kernels of ``tools/microbench_pcache``, T3/T4 their tuning
+# variants of ``tools/microbench_pcache_tune`` and T5 the gather probe of
 # ``tools/microbench_gather``.
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K6m": 0, "K7m": 0, "K8": 0, "K8p": 0, "K1m": 0, "K2m": 0, "T1": 0, "T2": 0,
-            "T3": 0, "T4": 0, "T5": 0}
+            "K6m": 0, "K7m": 0, "K8": 0, "K8p": 0, "K1m": 0, "K2m": 0,
+            "T1": 0, "T2": 0, "T3": 0, "T4": 0, "T5": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +79,8 @@ _SIGNATURES = {
     #  stream)
     "igcn_fused_fwd_tune": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P),
-    # (p4, rows, ct, dxt, n, nj, tkc, r, dpad, tr, stream)
+    # (p4, rows, ct, dxt, n, nj, tkc, r, dpad, tr, stream): K4's body, rows
+    # 16-byte aligned
     "igcn_fused_bwd_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (x, idx, out, n, reps, w, row_blocks, bf16, stream)
     "igcn_gather_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -221,6 +222,9 @@ def library() -> ctypes.CDLL:
         lib.igcn_gather_bwd_launch_shape.argtypes = [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.igcn_gather_bwd_launch_shape.restype = None
+        lib.igcn_fused_bwd_t_launch_shape.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.igcn_fused_bwd_t_launch_shape.restype = None
         lib.igcn_t2_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_t2_splits.restype = ctypes.c_int
         lib.igcn_fused_fwd_splits.argtypes = [ctypes.c_int] * 4

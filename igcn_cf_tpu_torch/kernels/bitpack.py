@@ -502,12 +502,14 @@ def mask_words_pair_plain(wp: torch.Tensor, seed_a: int, seed_b: int,
     return mask_words_plain(wp, seed_a, p), mask_words_plain(wp, seed_b, p)
 
 
-def _check_words(wp: torch.Tensor) -> torch.Tensor:
+def _mask_operand(wp: torch.Tensor) -> torch.Tensor:
     """wp as the mask kernel takes it: a contiguous 2-D int32 tensor whose
     data is 16-byte aligned (the kernel moves 16 bytes at a time), wp
     itself where it already is so, else a copy."""
     if wp.dtype != torch.int32 or wp.dim() != 2 or not wp.is_contiguous():
         raise ValueError("wp must be a contiguous 2-D int32 tensor of packed words")
+    if wp.numel() >= 2**32:  # the kernel indexes words in 32 bits
+        raise ValueError(f"{wp.numel()} words: the mask kernel takes < 2**32")
     return wp.clone() if wp.data_ptr() % 16 else wp
 
 
@@ -520,7 +522,7 @@ def mask_words(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     seed = _check_seed(seed)
     if not _build.on_cuda(wp):
         return mask_words_plain(wp, seed, p)
-    wp = _check_words(wp)
+    wp = _mask_operand(wp)
     out = torch.empty_like(wp)
     _build.launch("igcn_mask_words", wp, out, wp.shape[0], wp.shape[1], seed,
                   _threshold_u8(p))
@@ -537,7 +539,7 @@ def mask_words_pair(wp: torch.Tensor, seed_a: int, seed_b: int,
     seed_a, seed_b = _check_seed(seed_a), _check_seed(seed_b)
     if not _build.on_cuda(wp):
         return mask_words_pair_plain(wp, seed_a, seed_b, p)
-    wp = _check_words(wp)
+    wp = _mask_operand(wp)
     out_a, out_b = torch.empty_like(wp), torch.empty_like(wp)
     _build.launch("igcn_mask_words_pair", wp, out_a, out_b, wp.shape[0],
                   wp.shape[1], seed_a, seed_b, _threshold_u8(p))

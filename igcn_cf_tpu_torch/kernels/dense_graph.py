@@ -17,9 +17,8 @@ layout through ``bb_matmul`` (K6/K7), as the propagation-cache build does.
 Every operator here is differentiable. Edge dropout draws are explicit
 arguments (``FeatDrop``), drawn by the model: the INMO feature aggregation
 masks B once per direction (``mask_words_pair``, one pass for both), NGCF
-masks inside K6m/K7m
-(``bb_matmul_dropped``). The sparse COO backend (``kernels/sparse.py``) is
-not ported.
+masks inside K6m/K7m (``bb_matmul_dropped``). The sparse COO backend
+(``kernels/sparse.py``) is not ported.
 """
 
 from __future__ import annotations

@@ -36,7 +36,7 @@ import torch
 
 from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.kernels.bitpack import pad_to
-from igcn_cf_tpu_torch.kernels.pcache import _TILE, _d_padded, cached_prop
+from igcn_cf_tpu_torch.kernels.pcache import _TILE, _d_padded, _rows32, cached_prop
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
@@ -101,8 +101,8 @@ def _launch_4d(entry, kid, p4, rows, x, out_rows, tr, *extra,
     dpad = xb.shape[1]
     shape = (dpad, out_rows) if transposed else (out_rows, dpad)
     out = torch.empty(shape, dtype=torch.float32, device=p4.device)
-    _build.launch(entry, p4, rows.to(torch.int32).contiguous(), xb, out, n,
-                  nj, sub * 128, rows.shape[0], dpad, tr, *extra)
+    _build.launch(entry, p4, _rows32(rows), xb, out, n, nj, sub * 128,
+                  rows.shape[0], dpad, tr, *extra)
     _build.LAUNCHES[kid] += 1
     return out[: x.shape[1]] if transposed else out[:, : x.shape[1]]
 

@@ -12,19 +12,23 @@ no second copy, and each row prints ms, and GB/s and TF/s over one pass of
 the gathered rows (R * npad * 2 B) and the product's FLOP:
 
   fwd nj= tr= resident=   T3 for the JAX tool's (TR, resident_x0) grid
-  bwd_t nj= tr=           T4 for TR 128, 64 and 32
+  bwd_t nj= tr=           T4 for TR 128, 64 and 32, each with its launch
 
 then the card's roofline for one pass. No row is skipped: the JAX tool
 left out combinations over 15 MB of TPU VMEM, but a T3 block holds 3 (TR +
-64) x 72 bf16 of shared memory (its three-stage ring) and a T4 block 2 TR x
-208, at most 106 KB at TR 128 whatever NJ is, under the card's 232,448
-bytes. On the card NJ names the slabs only: T3 reads the same contiguous
-columns at NJ 4 and 2, split in S column ranges by TR
-(``microbench_pcache.fwd_splits``). A row the kernel refuses raises and
-ends the run.
+64) x 72 bf16 of shared memory (its three-stage ring) and a T4 block at
+most ~103 KB, under the card's 232,448 bytes. On the card NJ names the
+slabs only: T3 and T4 read the same contiguous columns at NJ 4 and 2. TR
+reaches T3's launch as rows a block (split in S column ranges by TR,
+``microbench_pcache.fwd_splits``) and T4's as rows a ring stage at TR 64
+(2 stages) and 32 (4 stages); 128-row stages do not fit 2 blocks an SM,
+so T4's TR 128 row runs K4's own 5 stages of 16 rows, as its printed
+launch says. A row the kernel refuses raises and ends the run.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -72,15 +76,43 @@ def fwd_tune(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
 def bwd_t(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,
           tr: int = TR) -> torch.Tensor:
     """T4: (d, npad) f32 = ct^T @ P4[rows], ct (R, d) taken as bf16, the
-    transpose of ``fused_bwd_4d``'s result, as the JAX kernel returns it;
-    one block per 128-column tile walks the R rows in ``tr``-row steps, in
-    order: deterministic, duplicate rows sum."""
+    transpose of ``fused_bwd_4d``'s result, as the JAX kernel returns it.
+    CUDA tensors launch K4's body (``csrc/pcache.cu``) with a transposed
+    store, so the result is ``pcache.gather_bwd`` of the same memory
+    transposed, bit for bit: 320-column tiles walk the R rows in order,
+    deterministic, duplicate rows sum. ``tr`` sets the rows of a ring stage
+    where such stages fit 2 blocks an SM (32 and 64; ``bwd_t_launch_shape``);
+    any other TR runs K4's 16-row stages. CPU tensors take the plain
+    version."""
     if not _build.on_cuda(p4):
         return bwd_t_plain(p4, rows, ct)
     _check_4d(p4, rows, ct, rows.shape[0], "ct", tr)
     npad = p4.shape[1] * p4.shape[2] * 128
     return _launch_4d("igcn_fused_bwd_t", "T4", p4, rows, ct, npad, tr,
                       transposed=True)
+
+
+# T4's launch, as igcn_fused_bwd_t_launch_shape writes it
+BWD_T_SHAPE_KEYS = ("grid_x", "d_tiles", "threads", "smem_bytes", "stages",
+                    "rows_a_stage", "blocks_per_sm")
+
+
+def bwd_t_launch_shape(npad: int, d: int, tr: int = TR) -> dict:
+    """T4's launch at TR ``tr`` on the current card: ``BWD_T_SHAPE_KEYS``
+    -> int."""
+    shape = (ctypes.c_int * len(BWD_T_SHAPE_KEYS))()
+    _build.library().igcn_fused_bwd_t_launch_shape(npad, d, tr, shape)
+    return dict(zip(BWD_T_SHAPE_KEYS, shape))
+
+
+def bwd_t_launch_line(npad: int, d: int, tr: int, device) -> str:
+    """T4's launch at TR ``tr`` as a row's note: none on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "plain version (CPU)"
+    s = bwd_t_launch_shape(npad, d, tr)
+    return (f"grid ({s['grid_x']}, {s['d_tiles']}) x {s['threads']} threads, "
+            f"{s['stages']} stages of {s['rows_a_stage']} rows, "
+            f"{s['smem_bytes']} B shared, {s['blocks_per_sm']} blocks an SM")
 
 
 # -- the tool ------------------------------------------------------------------------
@@ -141,6 +173,8 @@ def main(device="cuda") -> dict:
             name = f"bwd_t nj={nj} tr={tr}"
             ms[name] = cuda_ms(lambda: bwd_t(p4, rows, ctb, tr))
             report(name, ms[name], row_bytes, flops)
+            print(f"  launch: {bwd_t_launch_line(npad, x0.shape[1], tr, device)}",
+                  flush=True)
     floor, by = bound_ms(row_bytes, flops, c.peaks.bf16_flops,
                          c.peaks.hbm_bytes_s)
     print(f"\nroofline ({c.smi}): one pass over the gathered rows = "

@@ -701,6 +701,42 @@ def test_tune_kernels_match_plain_and_t1_t2(cuda, n, npad, nj, r, d, tr, dup):
     assert torch.equal(got_t, mpt.bwd_t(p4, rows, ct, tr))  # one writer
 
 
+@pytest.mark.parametrize("n,nj,sub,r,d,tr,dup", [
+    (700, 2, 8, 300, 64, 128, True),    # npad 2,048: 6.4 tiles of 320
+    (900, 1, 8, 517, 40, 64, False),    # ragged R, d padded, 64-row stages
+    (1500, 4, 3, 1000, 128, 32, True),  # npad 1,536, two feature tiles
+    (100, 1, 1, 33, 64, 16, True),      # npad 128: one part-full tile
+])
+def test_t4_is_k4_transposed(cuda, n, nj, sub, r, d, tr, dup):
+    """T4 runs K4's body with a transposed store: bit-equal to K4 on the
+    same memory, transposed, at an npad that is not a multiple of 320 and
+    at every TR (the rows of a ring stage move, the sums do not);
+    deterministic; its launch shape maps TR 32 and 64 to stage rows."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+
+    gen = torch.Generator(device=cuda).manual_seed(n + r + tr)
+    npad = nj * sub * 128
+    p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=gen, device=cuda)
+    if dup:
+        rows[r // 2:] = rows[: r - r // 2].clone()
+    ct = torch.randn((r, d), generator=gen, device=cuda).to(torch.bfloat16)
+    p4 = mpc.to4d(p, nj)
+    shape = mpt.bwd_t_launch_shape(npad, d, tr)
+    assert shape["rows_a_stage"] == (tr if tr in (32, 64) else 16)
+    assert shape["grid_x"] == -(-npad // 320) and shape["blocks_per_sm"] == 2
+    before = _build.LAUNCHES["T4"]
+    got = mpt.bwd_t(p4, rows, ct, tr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["T4"] == before + 1
+    assert got.shape == (d, npad)
+    assert torch.equal(got, pcache.gather_bwd(p, rows, ct).T)
+    assert torch.equal(got, mpt.bwd_t(p4, rows, ct, tr))
+    for other in (16, 32, 64, 128):
+        assert torch.equal(got, mpt.bwd_t(p4, rows, ct, other)), other
+
+
 # -- the redesigned forward body of T1/T3: column splits summed in order ----
 
 

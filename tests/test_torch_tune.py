@@ -17,7 +17,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from igcn_cf_tpu_torch import tools
-from igcn_cf_tpu_torch.kernels import _build
+from igcn_cf_tpu_torch.kernels import _build, pcache
 from igcn_cf_tpu_torch.tools import microbench_gather as mg
 from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
 from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
@@ -111,6 +111,24 @@ def test_tune_plain_versions_are_the_4d_functions(rng):
         assert torch.equal(mpt.fwd_tune(p4, rows, x0, resident_x0=res), want)
     torch.testing.assert_close(mpt.bwd_t(p4, rows, ct),
                                mpc.fused_bwd_4d(p4, rows, ct).T)
+
+
+def test_bwd_t_plain_is_k4_plain_transposed(rng):
+    """T4 computes K4's function on the same memory, transposed (the card
+    runs it through K4's body): its plain version, as CPU tensors take it,
+    equals K4's plain version transposed, duplicate rows included, at every
+    TR, with no launch."""
+    n, nj, npad, d = 150, 2, 512, 24
+    p = torch.as_tensor(rng.standard_normal((n, npad)).astype(np.float32)).to(
+        torch.bfloat16)
+    rows = torch.as_tensor(np.r_[rng.integers(0, n, 40), [7, 7, 149]])
+    ct = torch.as_tensor(rng.standard_normal((43, d)).astype(np.float32))
+    want = pcache.gather_bwd(p, rows, ct.to(torch.bfloat16)).T
+    before = dict(_build.LAUNCHES)
+    for tr in mpt.BWD_TRS:
+        torch.testing.assert_close(mpt.bwd_t(mpc.to4d(p, nj), rows, ct, tr),
+                                   want, **PAIR_TOL)
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("splits", [None, 1, 3])
@@ -241,6 +259,7 @@ def test_microbench_pcache_tune_rows_at_a_tiny_shape(monkeypatch, capsys):
     out = capsys.readouterr().out
     for name in want:
         assert name in out
+    assert out.count("launch: plain version (CPU)") == 6  # each T4 row
     assert "roofline (NVIDIA H100 80GB HBM3, 700.00 W)" in out
     assert "819 GB/s" not in out  # no TPU roofline
 
