@@ -74,7 +74,8 @@ Phases, each fatal on failure:
      the same draws, outputs and gradients; T1/T2 (the 4-D fused gather
      kernels) on the tool's full-shape random P against their plain
      versions and against K3/K4 on the same P (T1 bit-equal to K3, its
-     NJ-free case); T1's launch shape, its time
+     NJ-free case, T2 to K4, whose body it runs, with its launch shape and
+     device-only time); T1's launch shape, its time
      at column splits S 1, 2, 4, the chosen S and the largest, and its
      device-only time (calls queued back to back); on that P too, T3 (the tune
      tool's forward, X0 per stage and X0 kept in L2) against its plain
@@ -82,7 +83,8 @@ Phases, each fatal on failure:
      the tune grid, T1 there against the plain version, with device-only
      times; and T4 (its backward, written as dX0^T, K4's body) against
      its plain version and T2 transposed, bit-equal to K4 transposed at
-     every NJ and TR of the tune grid with its launch shape, deterministic;
+     every NJ and TR of the tune grid with its launch shape, deterministic,
+     and T2 at each of those rows bit-equal to K4, with its launch shape;
      T5 (the
      gather probe) bit-equal to its plain version at each of the gather
      tool's cases. With that P freed, the four tools' ``main()``
@@ -184,8 +186,8 @@ KERNELS = {
             "igcn_cf_tpu/kernels/bitpack.py:529"),
     "T1": ("fused_fwd_4d: P4[rows] @ X0, a block per TR rows and column split",
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:91"),
-    "T2": ("fused_bwd_4d: P4[rows]^T @ ct, one block per 128 columns",
-           "igcn_cf_tpu_torch/csrc/pcache_4d.cu", "tools/microbench_pcache.py:178"),
+    "T2": ("fused_bwd_4d: P4[rows]^T @ ct, K4's body with K4's store",
+           "igcn_cf_tpu_torch/csrc/pcache.cu", "tools/microbench_pcache.py:178"),
     "T3": ("fwd_tune: P4[rows] @ X0, X0 kept in L2 (resident_x0)",
            "igcn_cf_tpu_torch/csrc/pcache_4d.cu",
            "tools/microbench_pcache_tune.py:74"),
@@ -1345,7 +1347,8 @@ def check_fused_4d(inputs):
     """T1/T2 on the tool's full-shape random P (``inputs``, from
     ``microbench_pcache.random_inputs``) against their plain versions and
     against K3/K4 on the same (row-major) P: T1 bit-equal to K3, which
-    runs its body at TR 128; T2 deterministic."""
+    runs its body at TR 128, and T2 to K4, whose body it runs; T2
+    deterministic, with its launch shape and device-only time."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import pcache
@@ -1368,8 +1371,9 @@ def check_fused_4d(inputs):
         err = assert_close_scaled(got, want)
         ref_err = assert_close_scaled(other, want)
         diff = assert_close_scaled(got, other)
-        if name == "T1" and not torch.equal(got, other):
-            raise AssertionError("T1 (TR 128) differs from K3, its NJ-free case")
+        if not torch.equal(got, other):
+            raise AssertionError(f"{name} (TR {mpc.TR}) differs from {ref} on "
+                                 "the same memory")
         out[name] = {"max_abs_err": err,
                      "ms": cuda_ms(lambda: kern(p4, rows, x, mpc.TR)),
                      "plain_ms": cuda_ms(lambda: plain(p4, rows, x), reps=5),
@@ -1379,13 +1383,17 @@ def check_fused_4d(inputs):
         log(f"# {name} on the tool's P {tuple(p4.shape)} (R={r}, TR={mpc.TR}, "
             f"NJ={mpc.NJ}), outputs up to {float(want.abs().max()):.4g}: "
             f"max_abs_err {err:.3g} ({ref} {ref_err:.3g}, max diff to {ref} "
-            f"{diff:.3g}); "
+            f"{diff:.3g}, bit-equal to it); "
             f"{out[name]['ms']:.4f} ms vs {ref} {ref_ms:.4f} ms, plain "
             f"{out[name]['plain_ms']:.4f} ms, index_select + bf16 matmul "
             f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
             f"ms ({out[name]['bound_by']})")
     if not torch.equal(mpc.fused_bwd_4d(p4, rows, ct), mpc.fused_bwd_4d(p4, rows, ct)):
         raise AssertionError("T2 is not deterministic")
+    dev = device_ms(lambda: mpc.fused_bwd_4d(p4, rows, ct))
+    log(f"# T2 (TR {mpc.TR}, NJ {mpc.NJ}; {mpc.bwd_launch_line(npad, d, mpc.TR, 'cuda')}): "
+        f"{out['T2']['ms']:.4f} ms by events, {dev:.4f} ms on the device "
+        "(queued), deterministic")
     check_fwd_splits(p4, rows, x0, out["T1"]["ms"])
     return out
 
@@ -1442,8 +1450,9 @@ def check_tune_grid(p, rows, x0b, ctb):
     each), on the tool's P: T1 at that (NJ, TR) within GATHER_RTOL of the
     plain version (S and its split bounds move with TR), T3 bit-equal to
     it, and each one's device-only time. Then T4 at every (NJ, TR) row of
-    the backward grid bit-equal to K4 on the same memory, transposed, with
-    its launch shape and device-only time."""
+    the backward grid bit-equal to K4 on the same memory, transposed, and
+    T2 there bit-equal to K4 (so to T4 transposed), with both launch
+    shapes and device-only times."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import pcache
@@ -1472,20 +1481,29 @@ def check_tune_grid(p, rows, x0b, ctb):
         f"in both variants bit-equal to T1 at each; device-only ms a call "
         f"(queued): {', '.join(dev)}")
     del want
-    k4 = pcache.gather_bwd(p, rows, ctb).T  # K4 on the row-major P
-    npad, d, rows_out = p.shape[1], ctb.shape[1], []
+    k4 = pcache.gather_bwd(p, rows, ctb)  # K4 on the row-major P
+    npad, d, rows_t4, rows_t2 = p.shape[1], ctb.shape[1], [], []
     for nj in mpt.NJS:
         p4 = mpc.to4d(p, nj)
         for tr in mpt.BWD_TRS:
-            if not torch.equal(mpt.bwd_t(p4, rows, ctb, tr), k4):
+            t4 = mpt.bwd_t(p4, rows, ctb, tr)
+            if not torch.equal(t4, k4.T):
                 raise AssertionError(f"T4 nj={nj} tr={tr} differs from K4 "
                                      "transposed")
-            ms = device_ms(lambda: mpt.bwd_t(p4, rows, ctb, tr))
-            rows_out.append(f"nj={nj} tr={tr} {ms:.4f} ms ("
-                            f"{mpt.bwd_t_launch_line(npad, d, tr, 'cuda')})")
-    log(f"# T4 bit-equal to K4 transposed at every NJ {mpt.NJS} and TR "
-        f"{mpt.BWD_TRS} of the tune grid on the tool's P; device-only ms a "
-        f"call (queued) and launch: {'; '.join(rows_out)}")
+            if not torch.equal(mpc.fused_bwd_4d(p4, rows, ctb, tr), k4):
+                raise AssertionError(f"T2 nj={nj} tr={tr} differs from K4 "
+                                     "(and T4 transposed)")
+            del t4
+            for kid, fn, out, transposed in (("T4", mpt.bwd_t, rows_t4, True),
+                                             ("T2", mpc.fused_bwd_4d, rows_t2,
+                                              False)):
+                ms = device_ms(lambda: fn(p4, rows, ctb, tr))
+                line = mpc.bwd_launch_line(npad, d, tr, "cuda", transposed)
+                out.append(f"nj={nj} tr={tr} {ms:.4f} ms ({line})")
+    log(f"# T4 bit-equal to K4 transposed, and T2 to K4, at every NJ "
+        f"{mpt.NJS} and TR {mpt.BWD_TRS} of the tune grid on the tool's P; "
+        f"device-only ms a call (queued) and launch: T4 {'; '.join(rows_t4)}; "
+        f"T2 {'; '.join(rows_t2)}")
 
 
 def check_tune(inputs):

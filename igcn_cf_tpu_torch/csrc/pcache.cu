@@ -1,16 +1,18 @@
 // K4: the propagation cache's backward gather-matmul, dX0 = P[rows]^T @ ct,
-// and T4, the tune tool's transposed form of it. K3, the cache's forward
-// (reps = P[rows] @ X0), is the NJ-free case of T1's body: its C entry
-// igcn_gather_fwd sits beside that body in pcache_4d.cu.
+// and the two microbenchmark kernels that compute the same function on the
+// same memory: T2 (its 4-D form) and T4 (its transposed form). K3, the
+// cache's forward (reps = P[rows] @ X0), is the NJ-free case of T1's body:
+// its C entry igcn_gather_fwd sits beside that body in pcache_4d.cu.
 //
 // Replaces the TPU kernels igcn_cf_tpu/kernels/pcache.py::_fused_bwd (K4;
-// K3 replaces ::_fused_fwd) and tools/microbench_pcache_tune.py::bwd_t
-// (T4):
+// K3 replaces ::_fused_fwd), tools/microbench_pcache.py::fused_bwd_4d (T2)
+// and tools/microbench_pcache_tune.py::bwd_t (T4):
 //
 //   K4  dX0 (npad, d) = P[rows]^T @ ct    P (n, npad) bf16, ct (R, d) bf16;
 //                                          duplicate rows sum
-//   T4  dX0^T (d, npad) = ct^T @ P4[rows] P4 (n, NJ, sub, 128) bf16: the
+//   T2  dX0 (npad, d) = P4[rows]^T @ ct   P4 (n, NJ, sub, 128) bf16: the
 //                                          same memory as the row-major P
+//   T4  dX0^T (d, npad) = ct^T @ P4[rows]
 //
 // with f32 sums and without ever writing P[rows] to device memory. P is
 // stored row-major; the JAX package's 4-D slab layout and its 4096-column
@@ -67,21 +69,24 @@
 // [0, n) and a row past R read as zeros; npad is a multiple of 64, so a
 // warp's 32 columns of the last tile are all inside P or all outside.
 //
-// T4 is this body with a transposed epilogue (TRANS_OUT): the same sums,
-// each stored at (feature, column) of the (d, npad) output instead of
-// (column, feature), so T4's result is K4's transposed, bit for bit. The
-// TPU tool's TR (gathered rows a grid step) maps to the rows of a ring
-// stage where such stages fit 2 blocks an SM: TR 32 runs 4 stages of 32
-// rows, TR 64 2 stages of 64 (each ~103 KB of shared memory); 128-row
-// stages would need 205 KB a block for two of them, so TR 128, and every
-// other TR, runs K4's own 5 stages of 16 rows. The rows of a stage change
-// neither the sums nor their order (each k16 step is folded on its own),
-// so every TR gives the same bits. The store needs no shared memory: for
-// each of its 64 stores a warp writes 4 features x 8 consecutive columns,
-// whole 32-byte sectors, and the output (18 MB at the tool's shape) is
-// ~2% of the bytes the pass moves. A 2-stage ring of 64-row stages keeps
-// one stage in flight and waits on each: TR 64 is the slow row (H100
-// 80GB HBM3).
+// T2 and T4 are this body at npad = NJ * tkc, with K4's store (T2) or a
+// transposed one (TRANS_OUT, T4): the same sums, each stored at (column,
+// feature) of the (npad, d) output or at (feature, column) of the (d, npad)
+// one, so T2's result is K4's bit for bit and T4's is K4's transposed. NJ
+// names the TPU tool's column slabs only: the 4-D P4 is the row-major P's
+// memory. The TPU tool's TR (gathered rows a grid step) maps, in one
+// dispatch for both (launch_tr), to the rows of a ring stage where such
+// stages fit 2 blocks an SM: TR 32 runs 4 stages of 32 rows, TR 64 2
+// stages of 64 (each ~103 KB of shared memory); 128-row stages would need
+// 205 KB a block for two of them, so TR 128, and every other TR, runs K4's
+// own 5 stages of 16 rows. The rows of a stage change neither the sums nor
+// their order (each k16 step is folded on its own), so every TR gives the
+// same bits. The transposed store needs no shared memory: for each of its
+// 64 stores a warp writes 4 features x 8 consecutive columns, whole
+// 32-byte sectors, and the output (18 MB at the tool's shape) is ~2% of
+// the bytes the pass moves. A 2-stage ring of 64-row stages keeps one
+// stage in flight and waits on each: TR 64 is the slow row of T2 and T4
+// alike (H100 80GB HBM3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -313,10 +318,44 @@ int launch(const void* p, const void* rows, const void* ct, void* dx, int n,
   return (int)cudaGetLastError();
 }
 
-bool bad_t4_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
+// T2's and T4's shape check: K4's, with npad = nj * tkc in int and TR a
+// multiple of 16 in [16, 256], as the TPU tool takes it.
+bool bad_4d_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
   return n < 1 || nj < 1 || tkc < 128 || tkc % 128 ||
          (long long)nj * tkc > INT32_MAX || r_tot < 0 || dpad < kDTile ||
          dpad % kDTile || tr < 16 || tr > 256 || tr % 16;
+}
+
+// TR -> (rows a stage, stages) for T2 and T4: (32, 4) at 32, (64, 2) at 64,
+// else K4's (16, 5).
+template <bool TRANS_OUT>
+void launch_shape_tr(int npad, int d, int tr, int* shape) {
+  switch (tr) {
+    case 32: return launch_shape<32, 4, TRANS_OUT>(npad, d, shape);
+    case 64: return launch_shape<64, 2, TRANS_OUT>(npad, d, shape);
+    default: return launch_shape<16, 5, TRANS_OUT>(npad, d, shape);
+  }
+}
+
+template <bool TRANS_OUT>
+int launch_tr(const void* p4, const void* rows, const void* ct, void* dx,
+              int n, int nj, int tkc, int r_tot, int dpad, int tr,
+              void* stream) {
+  if (bad_4d_shape(n, nj, tkc, r_tot, dpad, tr) ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int npad = nj * tkc;
+  switch (tr) {
+    case 32:
+      return launch<32, 4, TRANS_OUT>(p4, rows, ct, dx, n, npad, r_tot, dpad,
+                                      stream);
+    case 64:
+      return launch<64, 2, TRANS_OUT>(p4, rows, ct, dx, n, npad, r_tot, dpad,
+                                      stream);
+    default:
+      return launch<16, 5, TRANS_OUT>(p4, rows, ct, dx, n, npad, r_tot, dpad,
+                                      stream);
+  }
 }
 
 }  // namespace
@@ -343,35 +382,30 @@ int igcn_gather_bwd(const void* p, const void* rows, const void* ct,
   return launch<16, 5, false>(p, rows, ct, dx, n, npad, r_tot, dpad, stream);
 }
 
-// T4's launch at TR tr: grid x, grid y, threads, shared bytes, stages,
-// rows a stage, blocks an SM. TR takes (rows a stage, stages) (32, 4) at
-// 32, (64, 2) at 64, else K4's (16, 5); igcn_fused_bwd_t below alike.
-void igcn_fused_bwd_t_launch_shape(int npad, int d, int tr, int* shape) {
-  switch (tr) {
-    case 32: return launch_shape<32, 4, true>(npad, d, shape);
-    case 64: return launch_shape<64, 2, true>(npad, d, shape);
-    default: return launch_shape<16, 5, true>(npad, d, shape);
-  }
+// T2's (transposed == 0) or T4's (transposed == 1) launch at TR tr: grid x,
+// grid y, threads, shared bytes, stages, rows a stage, blocks an SM.
+void igcn_fused_bwd_4d_launch_shape(int npad, int d, int tr, int transposed,
+                                    int* shape) {
+  if (transposed) return launch_shape_tr<true>(npad, d, tr, shape);
+  launch_shape_tr<false>(npad, d, tr, shape);
 }
 
-// T4: p4 (n, nj, tkc / 128, 128) bf16, the row-major (n, nj * tkc) P;
-// rows (r_tot,) int32, 16-byte aligned; ct (r_tot, dpad) bf16; dxt (dpad,
-// nj * tkc) f32.
+// T2: p4 (n, nj, tkc / 128, 128) bf16, the row-major (n, nj * tkc) P;
+// rows (r_tot,) int32, 16-byte aligned; ct (r_tot, dpad) bf16; dx (nj *
+// tkc, dpad) f32.
+int igcn_fused_bwd_4d(const void* p4, const void* rows, const void* ct,
+                      void* dx, int n, int nj, int tkc, int r_tot, int dpad,
+                      int tr, void* stream) {
+  return launch_tr<false>(p4, rows, ct, dx, n, nj, tkc, r_tot, dpad, tr,
+                          stream);
+}
+
+// T4: T2's operands, and dxt (dpad, nj * tkc) f32.
 int igcn_fused_bwd_t(const void* p4, const void* rows, const void* ct,
                      void* dxt, int n, int nj, int tkc, int r_tot, int dpad,
                      int tr, void* stream) {
-  if (bad_t4_shape(n, nj, tkc, r_tot, dpad, tr) ||
-      reinterpret_cast<uintptr_t>(rows) % 16)
-    return (int)cudaErrorInvalidValue;
-  const int npad = nj * tkc;
-  switch (tr) {
-    case 32:
-      return launch<32, 4, true>(p4, rows, ct, dxt, n, npad, r_tot, dpad, stream);
-    case 64:
-      return launch<64, 2, true>(p4, rows, ct, dxt, n, npad, r_tot, dpad, stream);
-    default:
-      return launch<16, 5, true>(p4, rows, ct, dxt, n, npad, r_tot, dpad, stream);
-  }
+  return launch_tr<true>(p4, rows, ct, dxt, n, nj, tkc, r_tot, dpad, tr,
+                         stream);
 }
 
 }  // extern "C"

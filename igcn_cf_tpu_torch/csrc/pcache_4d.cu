@@ -1,16 +1,18 @@
-// T1-T3: the 4-D fused gather kernels of the propagation-cache
-// microbenchmarks, forward and backward of out = P[rows] @ X0.
+// T1 and T3: the 4-D fused gather kernels of the propagation-cache
+// microbenchmarks, the forward out = P[rows] @ X0; and K3, the cache's
+// forward, on the same body.
 //
 // Replaces the TPU kernels tools/microbench_pcache.py::fused_fwd_4d (T1)
-// and ::fused_bwd_4d (T2), and tools/microbench_pcache_tune.py::fwd (T3):
+// and tools/microbench_pcache_tune.py::fwd (T3):
 //
-//   T1  out (R, d)    = P4[rows] @ X0     P4 (n, NJ, sub, 128) bf16, X0 (npad, d) bf16
-//   T2  dX0 (npad, d) = P4[rows]^T @ ct   ct (R, d) bf16; duplicate rows sum
+//   T1  out (R, d) = P4[rows] @ X0   P4 (n, NJ, sub, 128) bf16, X0 (npad, d) bf16
 //   T3  T1's product, with X0 kept in L2 on request (resident_x0)
 //
-// T4 (tools/microbench_pcache_tune.py::bwd_t, dX0^T (d, npad) = ct^T @
-// P4[rows]) is K4's body with a transposed epilogue: its entry
-// igcn_fused_bwd_t sits beside that body in pcache.cu.
+// The backward kernels of the same tools, T2 (::fused_bwd_4d, dX0 (npad,
+// d) = P4[rows]^T @ ct) and T4 (microbench_pcache_tune.py::bwd_t, its
+// transpose), are K4's body with K4's store and with a transposed one:
+// their entries igcn_fused_bwd_4d and igcn_fused_bwd_t sit beside that
+// body in pcache.cu.
 //
 // with npad = NJ * tkc, tkc = sub * 128, and f32 sums. P4 is the row-major
 // (n, npad) matrix seen as NJ column slabs of tkc columns per row: the same
@@ -19,8 +21,8 @@
 // What bounds them on the H100. At the tool's shape (n = 70,839, npad =
 // 73,728, R = 6,144, d = 64) one pass over the gathered rows is R * npad *
 // 2 B = 906 MB, 0.270 ms at the data sheet's 3.35 TB/s, against 2 * R *
-// npad * d = 5.8e10 FLOP, 0.059 ms at 989 TFLOP/s bf16: all three kernels
-// are bound by the P stream. They multiply on the tensor cores with mma.sync
+// npad * d = 5.8e10 FLOP, 0.059 ms at 989 TFLOP/s bf16: the body is bound
+// by the P stream. They multiply on the tensor cores with mma.sync
 // m16n8k16 (bf16 in, f32 sums), fed by cp.async rings (helpers in
 // mma_sync.cuh).
 //
@@ -58,8 +60,7 @@
 //   the running sum with f32 adds (see fold); a block owns TR gathered rows
 //   (TR / 16 warps, 16 rows and 64 features each).
 // K3 launches this body at TR 128 with T1's S. K4, the cache's backward,
-// has a body of its own (pcache.cu) that computes T2's function with
-// 320-column tiles.
+// has a body of its own (pcache.cu), 320-column tiles, which T2 and T4 run.
 //
 // T3 is T1's body with a compile-time RESIDENT flag. On the TPU,
 // resident_x0 fetches all of X0 into VMEM once; on Hopper X0 (npad x 64
@@ -71,13 +72,6 @@
 // so at one (NJ, TR) the two variants and T1 sum in one order and are
 // bit-equal. NJ names the JAX tool's slabs; the 4-D P is the row-major P's
 // memory, so the body reads npad contiguous columns whatever NJ is.
-//
-// T2: one block owns one 128-column tile of one slab (npad / 128 blocks),
-// walks all R gathered rows in TR-row steps, in order, and keeps the (128,
-// 64) output tile in registers (8 warps, 16 columns each) until it writes
-// it row-major into (npad, d). One writer per output and one summation
-// order: deterministic. The A operand is the gathered P tile read
-// transposed with ldmatrix.trans, as in K4.
 //
 // A row id outside [0, n) and a row past R read as zeros. d is padded by
 // the wrapper to a multiple of 64; each 64-wide feature tile is a grid
@@ -105,28 +99,18 @@ constexpr int kDTile = 64;              // features per block
 constexpr int kChunk = 64;              // T1 columns a stage
 constexpr int kLd = 64 + 8;             // padded smem row of a 64-wide tile
 constexpr int kStages = 3;              // T1/T3 ring depth
-constexpr int kColTile = 128;           // T2 columns of P per block
-constexpr int kLdP = kColTile + 8;      // padded smem row of T2's P tile
-constexpr int kT2Threads = 256;         // 8 warps x 16 columns
 constexpr int kMaxTr = 256;             // TR in [16, 256], a multiple of 16
-constexpr int kMaxSmem = 232448;        // bytes a block may use on Hopper
 constexpr int kK3Tr = 128;              // K3's rows a block
 
 // One k16 step of a warp's 16 x 64 output tile: acc += A (16 x 16) @ B
-// (16 x 64). A(m, k) is sA[(m0 + m) * LDA + k0 + k], or with A_TRANS
-// sA[(k0 + k) * LDA + m0 + m]; B(k, n) is sB[(k0 + k) * kLd + n]. The
-// padded pitches put the 8 row addresses of an ldmatrix in distinct banks.
-template <bool A_TRANS, int LDA>
+// (16 x 64). A(m, k) is sA[(m0 + m) * kLd + k0 + k], B(k, n) is
+// sB[(k0 + k) * kLd + n]. The padded pitch puts the 8 row addresses of an
+// ldmatrix in distinct banks.
 __device__ __forceinline__ void mma_k16(float (&acc)[8][4], const bf16* sA,
                                         const bf16* sB, int m0, int k0,
                                         int lane) {
   uint32_t a[4];
-  if (A_TRANS) {
-    ldsm_x4_t(a, sA + (k0 + (lane % 8) + (lane / 16) * 8) * LDA + m0 +
-                     ((lane / 8) % 2) * 8);
-  } else {
-    ldsm_x4(a, sA + (m0 + (lane % 16)) * LDA + k0 + (lane / 16) * 8);
-  }
+  ldsm_x4(a, sA + (m0 + (lane % 16)) * kLd + k0 + (lane / 16) * 8);
 #pragma unroll
   for (int np = 0; np < kDTile / 16; ++np) {
     uint32_t b[4];
@@ -259,7 +243,7 @@ fused_fwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
     float part[8][4] = {};
 #pragma unroll
     for (int k0 = 0; k0 < kChunk; k0 += 16) {
-      mma_k16<false, kLd>(part, a, b, warp * 16, k0, lane);
+      mma_k16(part, a, b, warp * 16, k0, lane);
     }
     fold(acc, part);
   }
@@ -268,79 +252,8 @@ fused_fwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
              r_tot, dpad, d0, lane);
 }
 
-// One TR-row stage of T2: columns [col0, col0 + 128) of the gathered
-// rows rb + [0, tr) into ps (pitch kLdP) and the features [d0, d0 + 64) of
-// the same rows of ct into cs (pitch kLd), as one cp.async group. Rows past
-// r_tot and ids outside [0, n) read as zeros.
-__device__ __forceinline__ void load_col_stage(
-    bf16* ps, bf16* cs, const bf16* __restrict__ p4,
-    const int* __restrict__ rows, const bf16* __restrict__ ct, int n,
-    size_t npad, size_t col0, int r_tot, int dpad, int d0, int rb, int tr,
-    int tid) {
-  for (int c = tid; c < tr * (kColTile / 8); c += kT2Threads) {
-    const int r = rb + c / (kColTile / 8);
-    const int id = r < r_tot ? rows[r] : -1;
-    const bool ok = id >= 0 && id < n;
-    cp_async16(ps + (c / (kColTile / 8)) * kLdP + (c % (kColTile / 8)) * 8,
-               p4 + (size_t)(ok ? id : 0) * npad + col0 +
-                   (c % (kColTile / 8)) * 8,
-               ok);
-  }
-  for (int c = tid; c < tr * 8; c += kT2Threads) {
-    const int r = rb + c / 8;
-    cp_async16(cs + (c / 8) * kLd + (c % 8) * 8,
-               ct + (size_t)(r < r_tot ? r : 0) * dpad + d0 + (c % 8) * 8,
-               r < r_tot);
-  }
-  cp_async_commit();
-}
-
-// T2: dx (npad, dpad) = P4[rows]^T @ ct; warp w owns the columns col0 + 16
-// w + [0, 16) and the block's 64 features. Block x owns the 128 columns
-// [128 x, 128 x + 128) of P (inside one slab, since tkc is a multiple of
-// 128), block y the features [64 y, 64 y + 64).
-__global__ void __launch_bounds__(kT2Threads)
-fused_bwd_4d_kernel(const bf16* __restrict__ p4, const int* __restrict__ rows,
-                    const bf16* __restrict__ ct, float* __restrict__ dx,
-                    int n, int nj, int tkc, int r_tot, int dpad, int tr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sP = reinterpret_cast<bf16*>(smem);  // [2][tr][kLdP] rows x columns
-  bf16* sC = sP + 2 * tr * kLdP;             // [2][tr][kLd] rows x features
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t npad = (size_t)nj * tkc;
-  const size_t col0 = (size_t)blockIdx.x * kColTile;
-  const int d0 = blockIdx.y * kDTile;
-  const int n_steps = (r_tot + tr - 1) / tr;
-  auto load = [&](int stage, int step) {
-    load_col_stage(sP + stage * tr * kLdP, sC + stage * tr * kLd, p4, rows, ct,
-                   n, npad, col0, r_tot, dpad, d0, step * tr, tr, tid);
-  };
-
-  float acc[8][4] = {};
-  if (n_steps > 0) load(0, 0);
-  for (int s = 0; s < n_steps; ++s) {
-    if (s + 1 < n_steps) {
-      load((s + 1) % 2, s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ps = sP + (s % 2) * tr * kLdP;
-    const bf16* cs = sC + (s % 2) * tr * kLd;
-    float part[8][4] = {};
-    for (int k0 = 0; k0 < tr; k0 += 16) {  // gathered rows in order
-      mma_k16<true, kLdP>(part, ps, cs, warp * 16, k0, lane);
-    }
-    fold(acc, part);
-    __syncthreads();
-  }
-  store_tile(acc, dx, (long long)col0 + warp * 16, (long long)npad, dpad, d0,
-             lane);
-}
-
 bool bad_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
-  return n < 1 || nj < 1 || tkc < kColTile || tkc % kColTile ||
+  return n < 1 || nj < 1 || tkc < 128 || tkc % 128 ||
          r_tot < 0 || dpad < kDTile || dpad % kDTile || tr < 16 ||
          tr > kMaxTr || tr % 16;
 }
@@ -348,8 +261,6 @@ bool bad_shape(int n, int nj, int tkc, int r_tot, int dpad, int tr) {
 size_t fwd_smem(int tr) {
   return (size_t)kStages * (tr + kChunk) * kLd * 2;
 }
-
-size_t bwd_smem(int tr) { return (size_t)2 * tr * (kLdP + kLd) * 2; }
 
 // Blocks of the forward body an SM holds at this TR, as the runtime's
 // occupancy calculator reports it for the RESIDENT-free instance (0 when
@@ -419,24 +330,6 @@ int launch_fwd(const void* p4, const void* rows, const void* x0, void* part,
     return (int)cudaErrorInvalidValue;
   return launch_fwd_body<RESIDENT>(p4, rows, x0, part, out, n, (int)npad,
                                    r_tot, dpad, tr, splits, stream);
-}
-
-int launch_bwd(const void* p4, const void* rows, const void* ct, void* dx,
-               int n, int nj, int tkc, int r_tot, int dpad, int tr,
-               void* stream) {
-  if (bad_shape(n, nj, tkc, r_tot, dpad, tr) || bwd_smem(tr) > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem(tr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_4d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((size_t)nj * tkc / kColTile), dpad / kDTile);
-  fused_bwd_4d_kernel<<<grid, kT2Threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(p4), static_cast<const int*>(rows),
-      static_cast<const bf16*>(ct), static_cast<float*>(dx), n, nj, tkc,
-      r_tot, dpad, tr);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -512,14 +405,6 @@ int igcn_fused_fwd_tune(const void* p4, const void* rows, const void* x0,
                                      r_tot, dpad, tr, splits, stream)
                   : launch_fwd<false>(p4, rows, x0, part, out, n, nj, tkc,
                                       r_tot, dpad, tr, splits, stream);
-}
-
-// p4 (n, nj, tkc / 128, 128) bf16; rows (r_tot,) int32; ct (r_tot, dpad)
-// bf16; dx (nj * tkc, dpad) f32.
-int igcn_fused_bwd_4d(const void* p4, const void* rows, const void* ct,
-                      void* dx, int n, int nj, int tkc, int r_tot, int dpad,
-                      int tr, void* stream) {
-  return launch_bwd(p4, rows, ct, dx, n, nj, tkc, r_tot, dpad, tr, stream);
 }
 
 }  // extern "C"

@@ -73,7 +73,8 @@ _SIGNATURES = {
     "igcn_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (p4, rows, x0, part, out, n, nj, tkc, r, dpad, tr, splits, stream)
     "igcn_fused_fwd_4d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # (p4, rows, ct, dx, n, nj, tkc, r, dpad, tr, stream)
+    # (p4, rows, ct, dx, n, nj, tkc, r, dpad, tr, stream): K4's body, rows
+    # 16-byte aligned
     "igcn_fused_bwd_4d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (p4, rows, x0, part, out, n, nj, tkc, r, dpad, tr, splits, resident,
     #  stream)
@@ -222,9 +223,9 @@ def library() -> ctypes.CDLL:
         lib.igcn_gather_bwd_launch_shape.argtypes = [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.igcn_gather_bwd_launch_shape.restype = None
-        lib.igcn_fused_bwd_t_launch_shape.argtypes = [ctypes.c_int] * 3 + [
+        lib.igcn_fused_bwd_4d_launch_shape.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)]
-        lib.igcn_fused_bwd_t_launch_shape.restype = None
+        lib.igcn_fused_bwd_4d_launch_shape.restype = None
         lib.igcn_t2_splits.argtypes = [ctypes.c_int] * 3
         lib.igcn_t2_splits.restype = ctypes.c_int
         lib.igcn_fused_fwd_splits.argtypes = [ctypes.c_int] * 4

@@ -16,7 +16,7 @@ rows (R * npad * 2 B) and the product's FLOP:
   C   the backward product G^T @ ct on the pre-gathered G
   D   gather, forward and backward through torch
   F4  T1 ``fused_fwd_4d`` (csrc/pcache_4d.cu)
-  G4  T2 ``fused_bwd_4d``
+  G4  T2 ``fused_bwd_4d`` (K4's body, csrc/pcache.cu), with its launch
   E   the port's ``cached_prop`` forward and backward (K3 through T1's body in
       csrc/pcache_4d.cu, K4 in csrc/pcache.cu)
 
@@ -168,14 +168,45 @@ def fused_fwd_4d(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
 
 def fused_bwd_4d(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,
                  tr: int = TR) -> torch.Tensor:
-    """T2: (npad, d) f32 = P4[rows]^T @ ct, ct (R, d) taken as bf16; one
-    block per 128-column tile walks the R rows in ``tr``-row steps, in
-    order: deterministic, duplicate rows sum."""
+    """T2: (npad, d) f32 = P4[rows]^T @ ct, ct (R, d) taken as bf16. CUDA
+    tensors launch K4's body (``csrc/pcache.cu``) with K4's store, so the
+    result is ``pcache.gather_bwd`` of the same memory, bit for bit:
+    320-column tiles walk the R rows in order, deterministic, duplicate
+    rows sum. ``tr`` sets the rows of a ring stage as for T4
+    (``bwd_launch_shape``). CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return fused_bwd_4d_plain(p4, rows, ct)
     _check_4d(p4, rows, ct, rows.shape[0], "ct", tr)
     npad = p4.shape[1] * p4.shape[2] * 128
     return _launch_4d("igcn_fused_bwd_4d", "T2", p4, rows, ct, npad, tr)
+
+
+# T2's and T4's launch, as igcn_fused_bwd_4d_launch_shape writes it
+BWD_SHAPE_KEYS = ("grid_x", "d_tiles", "threads", "smem_bytes", "stages",
+                  "rows_a_stage", "blocks_per_sm")
+
+
+def bwd_launch_shape(npad: int, d: int, tr: int = TR,
+                     transposed: bool = False) -> dict:
+    """T2's (or with ``transposed`` T4's) launch at TR ``tr`` on the
+    current card: ``BWD_SHAPE_KEYS`` -> int. TR 32 runs 4 ring stages of 32
+    rows, TR 64 2 of 64, any other TR K4's 5 stages of 16 rows."""
+    shape = (ctypes.c_int * len(BWD_SHAPE_KEYS))()
+    _build.library().igcn_fused_bwd_4d_launch_shape(npad, d, tr,
+                                                    int(transposed), shape)
+    return dict(zip(BWD_SHAPE_KEYS, shape))
+
+
+def bwd_launch_line(npad: int, d: int, tr: int, device,
+                    transposed: bool = False) -> str:
+    """T2's (or T4's) launch at TR ``tr`` as a row's note: none on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        return "plain version (CPU)"
+    s = bwd_launch_shape(npad, d, tr, transposed)
+    return (f"grid ({s['grid_x']}, {s['d_tiles']}) x {s['threads']} threads, "
+            f"{s['stages']} stages of {s['rows_a_stage']} rows, "
+            f"{s['smem_bytes']} B shared, {s['blocks_per_sm']} blocks an SM")
 
 
 # -- the tool ------------------------------------------------------------------------
@@ -262,6 +293,7 @@ def main(device="cuda") -> dict:
     report(f"F4 T1 fused fwd 4d (TR {TR}, NJ {NJ})", ms["F4"], row_bytes, flops)
     ms["G4"] = cuda_ms(lambda: fused_bwd_4d(p4, rows, ct, TR))
     report(f"G4 T2 fused bwd 4d (TR {TR}, NJ {NJ})", ms["G4"], row_bytes, flops)
+    print(f"  launch: {bwd_launch_line(NPAD, D, TR, device)}", flush=True)
     x0n = x0[:N].clone().requires_grad_()
     ms["E"] = cuda_ms(lambda: torch.autograd.grad(cached_prop(p, rows, x0n),
                                                   x0n, ct))

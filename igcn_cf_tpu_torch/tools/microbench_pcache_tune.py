@@ -28,16 +28,14 @@ launch says. A row the kernel refuses raises and ends the run.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.tools.microbench_pcache import (
-    _check_4d, _fwd_launch, _launch_4d, fused_fwd_4d_plain, random_inputs,
-    relerr, to4d)
+    _check_4d, _fwd_launch, _launch_4d, bwd_launch_line, bwd_launch_shape,
+    fused_fwd_4d_plain, random_inputs, relerr, to4d)
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
 TR = 128
@@ -79,11 +77,11 @@ def bwd_t(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,
     transpose of ``fused_bwd_4d``'s result, as the JAX kernel returns it.
     CUDA tensors launch K4's body (``csrc/pcache.cu``) with a transposed
     store, so the result is ``pcache.gather_bwd`` of the same memory
-    transposed, bit for bit: 320-column tiles walk the R rows in order,
-    deterministic, duplicate rows sum. ``tr`` sets the rows of a ring stage
-    where such stages fit 2 blocks an SM (32 and 64; ``bwd_t_launch_shape``);
-    any other TR runs K4's 16-row stages. CPU tensors take the plain
-    version."""
+    transposed, bit for bit, and ``fused_bwd_4d``'s transposed: 320-column
+    tiles walk the R rows in order, deterministic, duplicate rows sum.
+    ``tr`` sets the rows of a ring stage where such stages fit 2 blocks an
+    SM (32 and 64; ``bwd_t_launch_shape``); any other TR runs K4's 16-row
+    stages. CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return bwd_t_plain(p4, rows, ct)
     _check_4d(p4, rows, ct, rows.shape[0], "ct", tr)
@@ -92,27 +90,16 @@ def bwd_t(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,
                       transposed=True)
 
 
-# T4's launch, as igcn_fused_bwd_t_launch_shape writes it
-BWD_T_SHAPE_KEYS = ("grid_x", "d_tiles", "threads", "smem_bytes", "stages",
-                    "rows_a_stage", "blocks_per_sm")
-
-
 def bwd_t_launch_shape(npad: int, d: int, tr: int = TR) -> dict:
-    """T4's launch at TR ``tr`` on the current card: ``BWD_T_SHAPE_KEYS``
-    -> int."""
-    shape = (ctypes.c_int * len(BWD_T_SHAPE_KEYS))()
-    _build.library().igcn_fused_bwd_t_launch_shape(npad, d, tr, shape)
-    return dict(zip(BWD_T_SHAPE_KEYS, shape))
+    """T4's launch at TR ``tr`` on the current card
+    (``microbench_pcache.BWD_SHAPE_KEYS`` -> int): T2's, with the
+    transposed store."""
+    return bwd_launch_shape(npad, d, tr, transposed=True)
 
 
 def bwd_t_launch_line(npad: int, d: int, tr: int, device) -> str:
     """T4's launch at TR ``tr`` as a row's note: none on the CPU."""
-    if torch.device(device).type != "cuda":
-        return "plain version (CPU)"
-    s = bwd_t_launch_shape(npad, d, tr)
-    return (f"grid ({s['grid_x']}, {s['d_tiles']}) x {s['threads']} threads, "
-            f"{s['stages']} stages of {s['rows_a_stage']} rows, "
-            f"{s['smem_bytes']} B shared, {s['blocks_per_sm']} blocks an SM")
+    return bwd_launch_line(npad, d, tr, device, transposed=True)
 
 
 # -- the tool ------------------------------------------------------------------------

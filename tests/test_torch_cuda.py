@@ -610,8 +610,11 @@ def test_bbt_pair_dropped_grad_matches_plain(cuda):
 def test_fused_4d_kernels_match_plain_and_k3_k4(cuda, n, npad, nj, r, d, tr,
                                                 dup):
     """T1/T2 against their plain versions and against K3/K4 on the same
-    row-major P."""
+    row-major P; T2 runs K4's body, so it is bit-equal to K4 and to T4
+    transposed at every TR (the rows of a ring stage move, the sums do
+    not), also where npad is not a multiple of K4's 320-column tile."""
     from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+    from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
 
     gen = torch.Generator(device=cuda).manual_seed(n + r)
     p = torch.randn((n, npad), generator=gen, device=cuda).to(torch.bfloat16)
@@ -634,9 +637,32 @@ def test_fused_4d_kernels_match_plain_and_k3_k4(cuda, n, npad, nj, r, d, tr,
                                **GATHER_TOL)
     torch.testing.assert_close(got_f, pcache.gather_fwd(p, rows, x0.to(torch.bfloat16)),
                                **GATHER_TOL)
-    torch.testing.assert_close(got_b, pcache.gather_bwd(p, rows, ct.to(torch.bfloat16)),
-                               **GATHER_TOL)
+    k4 = pcache.gather_bwd(p, rows, ct.to(torch.bfloat16))
+    torch.testing.assert_close(got_b, k4, **GATHER_TOL)
     assert torch.equal(got_b, mpc.fused_bwd_4d(p4, rows, ct, tr))  # one writer
+    assert torch.equal(got_b, k4)
+    for other in (16, 32, 64, 128, 256):
+        assert torch.equal(mpc.fused_bwd_4d(p4, rows, ct, other), k4), other
+        assert torch.equal(mpt.bwd_t(p4, rows, ct, other).T, k4), other
+
+
+@pytest.mark.parametrize("npad,d", [(73728, 64), (1024, 64), (2048, 40)])
+@pytest.mark.parametrize("tr", [16, 32, 64, 128, 256])
+def test_t2_launch_shape_maps_tr_to_ring_stages(cuda, npad, d, tr):
+    """T2's launch is T4's with K4's store: 320-column tiles, TR 32 -> 4
+    stages of 32 rows, TR 64 -> 2 of 64, any other TR K4's 5 of 16; 2
+    blocks an SM at each."""
+    from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
+
+    shape = mpc.bwd_launch_shape(npad, d, tr)
+    want = {32: (32, 4), 64: (64, 2)}.get(tr, (16, 5))
+    assert (shape["rows_a_stage"], shape["stages"]) == want
+    assert shape["grid_x"] == -(-npad // 320) and shape["d_tiles"] == 1
+    assert shape["threads"] == 320 and shape["blocks_per_sm"] == 2
+    assert shape == dict(mpc.bwd_launch_shape(npad, d, tr, transposed=True),
+                         blocks_per_sm=shape["blocks_per_sm"])
+    line = mpc.bwd_launch_line(npad, d, tr, cuda)
+    assert f"{want[1]} stages of {want[0]} rows" in line
 
 
 def test_fused_4d_wrappers_refuse_bad_operands(cuda):
