@@ -87,7 +87,8 @@ Phases, each fatal on failure:
      and T2 at each of those rows bit-equal to K4, with its launch shape;
      T5 (the
      gather probe) bit-equal to its plain version at each of the gather
-     tool's cases. With that P freed, the four tools' ``main()``
+     tool's cases, each in one wave of its launch plan, and the largest at
+     every stripe width that fits. With that P freed, the four tools' ``main()``
      (``igcn_cf_tpu_torch.tools.microbench_dual``, ``microbench_pcache``,
      ``microbench_pcache_tune`` and ``microbench_gather``) print their
      rows, with the counts set to 0 just before: K1m, K2m and T1-T5 must
@@ -194,7 +195,8 @@ KERNELS = {
     "T4": ("bwd_t: ct^T @ P4[rows], K4's body with a transposed store",
            "igcn_cf_tpu_torch/csrc/pcache.cu",
            "tools/microbench_pcache_tune.py:160"),
-    "T5": ("gather_chain: reps row gathers from a shared-memory stripe",
+    "T5": ("gather_chain: runs of reps rows in a shared-memory stripe, one "
+           "wave, sorted by bank group",
            "igcn_cf_tpu_torch/csrc/gather_probe.cu",
            "tools/microbench_gather.py:42"),
 }
@@ -1583,17 +1585,29 @@ def check_tune(inputs):
 
 def check_gather_probe():
     """T5 at each of the gather tool's cases, bit-equal to its plain
-    version; the largest case timed (calls queued back to back) with its
-    bound and the library yardstick: one torch.gather over the (reps, N,
-    128) index, then a sum over reps."""
+    version, in one wave of its launch plan, timed (calls queued back to
+    back); the largest case also at every stripe width whose padded stripe
+    fits, bit-equal at each, with its runs unsorted and at reps 0 (the time
+    outside the runs), and with its bound and the library yardstick:
+    one torch.gather over the (reps, N, 128) index, then a sum over reps.
+    The bound is the largest of three floors: x, idx and out crossing
+    device memory once, the adds at the fp32 peak, and reps * N * 128
+    shared-memory reads at 32 a clock per SM at the card's clocks.max.sm
+    (named "operations")."""
     import torch
 
     from igcn_cf_tpu_torch.tools import microbench_gather as mg
+    from igcn_cf_tpu_torch.tools import sm_clock
     from igcn_cf_tpu_torch.utils.timing import cuda_ms, queued_cuda_ms
 
+    sms, mhz = sm_clock()
     reps, cases = mg.REPS, {}
     for n, dtype in mg.CASES:
         idx, x = mg.gather_inputs(n, dtype, "cuda")
+        plan = mg.launch_plan(n, dtype, sms, reps)
+        if plan.grid > sms or plan.items > sms:
+            raise AssertionError(f"T5 N={n} {dtype} takes more than one wave: "
+                                 f"{plan}")
         got = mg.gather_chain(idx, x, reps)
         sync()
         if not torch.equal(got, mg.gather_chain_plain(idx, x, reps)):
@@ -1601,25 +1615,54 @@ def check_gather_probe():
         ms = queued_cuda_ms(lambda: mg.gather_chain(idx, x, reps))
         # events around each call also time its launch from the host
         events_ms = cuda_ms(lambda: mg.gather_chain(idx, x, reps))
-        log(f"# T5 N={n} {dtype} reps={reps} (stripe {mg.stripe_width(n, dtype)} "
-            f"columns): bit-equal to its plain version, {ms * 1e3:.3f} us a call "
-            f"queued ({events_ms * 1e3:.3f} us by events around each call)")
-        cases[n, dtype] = idx, x, ms
+        log(f"# T5 N={n} {dtype} reps={reps}, plan {mg.plan_line(plan, sms)}: "
+            f"bit-equal to its plain version, {ms * 1e3:.3f} us a call queued "
+            f"({events_ms * 1e3:.3f} us by events around each call)")
+        cases[n, dtype] = idx, x, ms, got
     # the row of the kernels line: the largest case, N = 8,192 in f32
     n, dtype = max(cases, key=lambda case: case[0])
-    idx, x, ms = cases[n, dtype]
+    idx, x, ms, want = cases[n, dtype]
+    widths, w = [], 1
+    while w <= mg.WIDTH:
+        try:
+            plan = mg.launch_plan(n, dtype, sms, reps, width=w)
+        except ValueError:  # the padded stripe no longer fits
+            break
+        if not torch.equal(mg.gather_chain(idx, x, reps, plan), want):
+            raise AssertionError(f"T5 N={n} {dtype} at stripe width {w} differs")
+        us = queued_cuda_ms(lambda: mg.gather_chain(idx, x, reps, plan)) * 1e3
+        widths.append(f"W {w} ({plan.items} items) {us:.3f} us")
+        w *= 2
+    log(f"# T5 N={n} {dtype} by stripe width, each bit-equal, queued: "
+        f"{', '.join(widths)}")
+    # where the time goes: the same plan with the runs unsorted, and with
+    # no run (reps 0: launch, stripe copy, ids read, outputs written)
+    plan = mg.launch_plan(n, dtype, sms, reps)
+    unsorted = plan._replace(sorted=False)
+    if not torch.equal(mg.gather_chain(idx, x, reps, unsorted), want):
+        raise AssertionError(f"T5 N={n} {dtype} with unsorted runs differs")
+    unsorted_us = queued_cuda_ms(lambda: mg.gather_chain(idx, x, reps, unsorted)) * 1e3
+    bare_us = queued_cuda_ms(lambda: mg.gather_chain(idx, x, 0)) * 1e3
+    log(f"# T5 N={n} {dtype} breakdown, queued: sorted runs {ms * 1e3:.3f} us, "
+        f"unsorted runs {unsorted_us:.3f} us (bit-equal), reps 0 {bare_us:.3f} us")
     all_idx = torch.stack([torch.remainder(idx.long() + i, n) for i in range(reps)])
     xs = x.unsqueeze(0).expand(reps, -1, -1)
+    floors = bound(2 * x.numel() * x.element_size() + idx.numel() * 4,
+                   reps * x.numel(), "fp32")
+    onchip_ms = reps * x.numel() / (32 * sms * mhz * 1e6) * 1e3
     out = {"T5": {"max_abs_err": 0.0, "ms": ms,
                   "plain_ms": cuda_ms(lambda: mg.gather_chain_plain(idx, x, reps),
                                       reps=5),
                   "library_ms": cuda_ms(lambda: torch.gather(xs, 1, all_idx).sum(0)),
-                  # x, idx and out cross device memory once; reps adds per output
-                  **bound(2 * x.numel() * x.element_size() + idx.numel() * 4,
-                          reps * x.numel(), "fp32")}}
+                  **floors}}
+    if onchip_ms > floors["bound_ms"]:
+        out["T5"].update(bound_ms=onchip_ms, bound_by="operations")
     log(f"# T5 row: N={n} {dtype}, {out['T5']['ms']:.5f} ms vs plain "
         f"{out['T5']['plain_ms']:.4f} ms, gather + sum {out['T5']['library_ms']:.4f} "
-        f"ms, bound {out['T5']['bound_ms']:.5f} ms ({out['T5']['bound_by']})")
+        f"ms; floors: device memory or fp32 adds {floors['bound_ms']:.5f} ms "
+        f"({floors['bound_by']}), {reps * x.numel()} shared-memory reads at 32 "
+        f"a clock on {sms} SMs at {mhz:.0f} MHz {onchip_ms:.5f} ms; bound "
+        f"{out['T5']['bound_ms']:.5f} ms ({out['T5']['bound_by']})")
     return out
 
 

@@ -83,8 +83,10 @@ _SIGNATURES = {
     # (p4, rows, ct, dxt, n, nj, tkc, r, dpad, tr, stream): K4's body, rows
     # 16-byte aligned
     "igcn_fused_bwd_t": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (x, idx, out, n, reps, w, row_blocks, bf16, stream)
-    "igcn_gather_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (x, idx, out, n, reps, w, pitch, rows_per_range, row_ranges, grid,
+    #  padded, sorted, bf16, stream): microbench_gather.launch_plan's plan
+    "igcn_gather_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
     # (users, items_t, excl, banned, scratch, out, n_users, n_items_pad, d,
     #  k, li, splits, stream)
     "igcn_fused_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -874,18 +874,72 @@ def test_fwd_wrappers_refuse_bad_splits(cuda):
     (300, torch.float32, 1000, 0),   # many wraps of every index
     (777, torch.bfloat16, 20, -3 * 777 - 5),  # negative ids wrap as mod N
     (1000, torch.float32, 0, 0),     # no gather: zeros
+    (58112, torch.float32, 50, 0),   # one-column stripe at the limit, wrapping
+    (1, torch.float32, 7, 0),        # N 1: every read is row 0
+    (1, torch.bfloat16, 0, 0),
+    (999, torch.float32, 50, 0),     # N not divisible by the row split
+    (2047, torch.bfloat16, 2047, 0),  # reps = N: the padded layout off
 ])
 def test_gather_chain_kernel_is_bit_exact(cuda, n, dtype, reps, shift):
-    """T5 against its plain version, bit for bit."""
+    """T5 against its plain version, bit for bit, in one wave of its launch
+    plan."""
     from igcn_cf_tpu_torch.tools import microbench_gather as mg
 
     idx, x = mg.gather_inputs(n, dtype, cuda)
     idx = idx + shift
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = mg.launch_plan(n, dtype, sms, reps)
+    assert plan.grid <= sms and plan.padded == (reps < n and n < 58112)
     before = _build.LAUNCHES["T5"]
     got = mg.gather_chain(idx, x, reps)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["T5"] == before + 1
     assert got.dtype == dtype and torch.equal(got, mg.gather_chain_plain(idx, x, reps))
+
+
+@pytest.mark.parametrize("n,dtype,reps", [
+    (8192, torch.float32, 50),    # the tool's largest case, sorted
+    (4099, torch.bfloat16, 37),   # sorted, with a short last row range
+    (999, torch.bfloat16, 31),    # ragged row ranges, runs of 31
+    (400, torch.float32, 3),      # up to 128-column stripes
+    (600, torch.float32, 700),    # reps > N: wrapping columns
+])
+def test_gather_chain_is_bit_exact_at_every_plan(cuda, n, dtype, reps):
+    """T5 at every stripe width that fits, and with blocks walking several
+    work items (plans for 1 and 7 SMs on this card), each with its padded
+    runs sorted by bank group and not, bit-equal to its plain version each
+    time."""
+    from igcn_cf_tpu_torch.tools import microbench_gather as mg
+
+    idx, x = mg.gather_inputs(n, dtype, cuda)
+    want = mg.gather_chain_plain(idx, x, reps)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans, w = [mg.launch_plan(n, dtype, 1, reps),
+                mg.launch_plan(n, dtype, 7, reps)], 1
+    while w <= mg.WIDTH:
+        try:
+            plans.append(mg.launch_plan(n, dtype, sms, reps, width=w))
+        except ValueError:  # no longer fits
+            break
+        w *= 2
+    assert len(plans) > 3
+    plans += [plan._replace(sorted=False) for plan in plans if plan.sorted]
+    for plan in plans:
+        assert torch.equal(mg.gather_chain(idx, x, reps, plan), want), plan
+
+
+def test_gather_chain_reads_misaligned_views(cuda):
+    """x and idx that start 4 bytes into their storage are copied to an
+    aligned buffer; the result is the plain version's."""
+    from igcn_cf_tpu_torch.tools import microbench_gather as mg
+
+    idx, x = mg.gather_inputs(640, torch.float32, cuda)
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x)
+    ids = torch.empty(idx.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    xs.copy_(x)
+    ids = ids.view_as(idx).copy_(idx)
+    assert xs.data_ptr() % 16 and ids.data_ptr() % 16
+    assert torch.equal(mg.gather_chain(ids, xs, 50), mg.gather_chain_plain(idx, x, 50))
 
 
 def test_tune_and_gather_wrappers_refuse_bad_operands(cuda):
@@ -910,6 +964,14 @@ def test_tune_and_gather_wrappers_refuse_bad_operands(cuda):
         mg.gather_chain(idx.long(), x)
     with pytest.raises(ValueError):
         mg.gather_chain(idx, x.double())
+    with pytest.raises(ValueError, match="reps"):
+        mg.gather_chain(idx, x, -1)
+    with pytest.raises(ValueError, match="shared memory"):
+        mg.launch_plan(8192, torch.float32, 132, width=8)
+    bad = mg.launch_plan(64, torch.float32, 132)._replace(row_ranges=1,
+                                                          rows_per_range=32)
+    with pytest.raises(RuntimeError, match="igcn_gather_chain"):
+        mg.gather_chain(idx, x, 50, bad)  # rows 32-63 left out: refused
     assert _build.LAUNCHES == before
 
 
