@@ -1496,9 +1496,8 @@ def check_tune_grid(p, rows, x0b, ctb):
                 raise AssertionError(f"T2 nj={nj} tr={tr} differs from K4 "
                                      "(and T4 transposed)")
             del t4
-            for kid, fn, out, transposed in (("T4", mpt.bwd_t, rows_t4, True),
-                                             ("T2", mpc.fused_bwd_4d, rows_t2,
-                                              False)):
+            for fn, out, transposed in ((mpt.bwd_t, rows_t4, True),
+                                        (mpc.fused_bwd_4d, rows_t2, False)):
                 ms = device_ms(lambda: fn(p4, rows, ctb, tr))
                 line = mpc.bwd_launch_line(npad, d, tr, "cuda", transposed)
                 out.append(f"nj={nj} tr={tr} {ms:.4f} ms ({line})")
@@ -1572,7 +1571,7 @@ def check_tune(inputs):
                  **gather_bound(r, npad, d, ctb.numel() * 2, got.numel() * 4)}
     dev = device_ms(lambda: mpt.bwd_t(p4, rows, ctb, tr))
     log(f"# T4 on the same P (TR {tr}, NJ {mpc.NJ}; "
-        f"{mpt.bwd_t_launch_line(npad, d, tr, 'cuda')}): max_abs_err {err:.3g} "
+        f"{mpc.bwd_launch_line(npad, d, tr, 'cuda', True)}): max_abs_err {err:.3g} "
         f"(outputs up to {float(want.abs().max()):.4g}), max diff to T2^T "
         f"{diff:.3g}, bit-equal to K4 transposed, deterministic; "
         f"{out['T4']['ms']:.4f} ms by events ({dev:.4f} on the device) vs K4 "

@@ -168,10 +168,11 @@ def plan_line(plan: LaunchPlan, sms: int) -> str:
     """A plan as one line of the tool's output."""
     layout = ("padded runs, sorted by bank group" if plan.sorted else
               "padded runs" if plan.padded else "wrapping columns")
+    walk = -(-plan.items // plan.grid)
     return (f"{plan.stripes} stripes of {plan.width} x {plan.row_ranges} row "
             f"ranges of {plan.rows_per_range} = {plan.items} items, grid "
-            f"{plan.grid} on {sms} SMs (at most {-(-plan.items // plan.grid)} "
-            f"items a block), pitch {plan.pitch}, {plan.smem_bytes} B shared, "
+            f"{plan.grid} on {sms} SMs (at most {walk} item{'s' * (walk > 1)} "
+            f"a block), pitch {plan.pitch}, {plan.smem_bytes} B shared, "
             f"{layout}")
 
 

@@ -34,8 +34,8 @@ import torch
 from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.tools.microbench_pcache import (
-    _check_4d, _fwd_launch, _launch_4d, bwd_launch_line, bwd_launch_shape,
-    fused_fwd_4d_plain, random_inputs, relerr, to4d)
+    _check_4d, _fwd_launch, _launch_4d, bwd_launch_line, fused_fwd_4d_plain,
+    random_inputs, relerr, to4d)
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
 TR = 128
@@ -80,26 +80,14 @@ def bwd_t(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,
     transposed, bit for bit, and ``fused_bwd_4d``'s transposed: 320-column
     tiles walk the R rows in order, deterministic, duplicate rows sum.
     ``tr`` sets the rows of a ring stage where such stages fit 2 blocks an
-    SM (32 and 64; ``bwd_t_launch_shape``); any other TR runs K4's 16-row
-    stages. CPU tensors take the plain version."""
+    SM (32 and 64; ``microbench_pcache.bwd_launch_shape``); any other TR
+    runs K4's 16-row stages. CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return bwd_t_plain(p4, rows, ct)
     _check_4d(p4, rows, ct, rows.shape[0], "ct", tr)
     npad = p4.shape[1] * p4.shape[2] * 128
     return _launch_4d("igcn_fused_bwd_t", "T4", p4, rows, ct, npad, tr,
                       transposed=True)
-
-
-def bwd_t_launch_shape(npad: int, d: int, tr: int = TR) -> dict:
-    """T4's launch at TR ``tr`` on the current card
-    (``microbench_pcache.BWD_SHAPE_KEYS`` -> int): T2's, with the
-    transposed store."""
-    return bwd_launch_shape(npad, d, tr, transposed=True)
-
-
-def bwd_t_launch_line(npad: int, d: int, tr: int, device) -> str:
-    """T4's launch at TR ``tr`` as a row's note: none on the CPU."""
-    return bwd_launch_line(npad, d, tr, device, transposed=True)
 
 
 # -- the tool ------------------------------------------------------------------------
@@ -160,8 +148,8 @@ def main(device="cuda") -> dict:
             name = f"bwd_t nj={nj} tr={tr}"
             ms[name] = cuda_ms(lambda: bwd_t(p4, rows, ctb, tr))
             report(name, ms[name], row_bytes, flops)
-            print(f"  launch: {bwd_t_launch_line(npad, x0.shape[1], tr, device)}",
-                  flush=True)
+            line = bwd_launch_line(npad, x0.shape[1], tr, device, True)
+            print(f"  launch: {line}", flush=True)
     floor, by = bound_ms(row_bytes, flops, c.peaks.bf16_flops,
                          c.peaks.hbm_bytes_s)
     print(f"\nroofline ({c.smi}): one pass over the gathered rows = "

@@ -749,7 +749,7 @@ def test_t4_is_k4_transposed(cuda, n, nj, sub, r, d, tr, dup):
         rows[r // 2:] = rows[: r - r // 2].clone()
     ct = torch.randn((r, d), generator=gen, device=cuda).to(torch.bfloat16)
     p4 = mpc.to4d(p, nj)
-    shape = mpt.bwd_t_launch_shape(npad, d, tr)
+    shape = mpc.bwd_launch_shape(npad, d, tr, transposed=True)
     assert shape["rows_a_stage"] == (tr if tr in (32, 64) else 16)
     assert shape["grid_x"] == -(-npad // 320) and shape["blocks_per_sm"] == 2
     before = _build.LAUNCHES["T4"]
