@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's IGCN serving and training paths, LightGCN and
-NGCF training, and the four kernel-microbenchmark tools, once on one NVIDIA
-H100.
+NGCF training, the command line's flows (run, dropit, dropui) and the four
+kernel-microbenchmark tools, once on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -65,7 +65,23 @@ Phases, each fatal on failure:
      at that model's eval shape (d=64, then NGCF's d=256) against its plain
      version, as in phase 6; then one NGCF step through the kernels against
      the same step through the plain versions.
-  8. microbenchmark tools -- with NGCF freed: K1m/K2m (the in-kernel masked
+  8. the command line's flows -- the catalog written once in the reference
+     text format (``Interactions.output``, .smoke/text/1/), then
+     ``igcn_cf_tpu_torch.cli.main.main`` in-process, at the Gowalla presets
+     cut to one epoch, with .smoke/cli/ as the working directory: IGCN
+     ``run`` (with ``--log-dir``), MF ``run``, ``derive --kind dropit`` and
+     IGCN ``dropit``, ``derive --kind dropui`` and IGCN and LightGCN
+     ``dropui`` (LightGCN grows its table on the card). Each flow must
+     print the JAX package's lines (epoch, validation, best checkpoint,
+     test; previous/updated interactions; the six slices of the inductive
+     model and of Popularity), build at most one P (none for its eval-only
+     trainers), and is logged with its wall seconds, P builds and K5
+     launches; metrics.jsonl must hold the train and validation tags, and
+     the IGCN ``run`` must launch K1-K7 and K8p. Then K5 against its plain
+     version on the IGCN dropui flow's all users / new items slice (every
+     old item banned) and, ids identical, on its Popularity floor's all/all
+     eval (integer scores that tie).
+  9. microbenchmark tools -- with NGCF freed: K1m/K2m (the in-kernel masked
      transposed pair) small and on the full B at IGCN's d=64 and p=0.3 with
      two seeds near the top of the u32 range, against their plain versions
      and bit-equal to K1/K2 over mask_words(B, seed); bbt_pair_dropped's
@@ -93,7 +109,7 @@ Phases, each fatal on failure:
      ``microbench_pcache_tune`` and ``microbench_gather``) print their
      rows, with the counts set to 0 just before: K1m, K2m and T1-T5 must
      launch there, and on no earlier path.
-  9. output  -- a JSON line of the kernels (each with its launches, error,
+  10. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -107,8 +123,10 @@ The dataset is cached in ``.smoke/`` (generated in about a minute if absent).
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1099,11 +1117,14 @@ def k3_digest_equal_to_t1() -> str:
     return k3_digest()
 
 
-def check_eval_topk(trainer, name):
-    """K5 at the validation eval's shape (all users x the padded catalog, at
-    the width of ``name``'s representations), on the trained representations
-    and the val exclusion words: the ids of the eval's own ``recommend``
-    against the plain version, in user chunks, and NDCG@K of both id sets."""
+def check_eval_topk(trainer, name, split="val", banned=None, exact=False):
+    """K5 at an eval's shape (all users x the padded catalog, at the width of
+    ``name``'s representations), on the trainer's representations and the
+    ``split``'s exclusion words, with the ``banned`` items: the ids of the
+    eval's own ``recommend`` against the plain version, in user chunks, and
+    NDCG@K of both id sets against the split's lists. ``exact`` asks for
+    identical ids on every row (scores that tie, which the plain version
+    orders by item id)."""
     import torch
 
     from igcn_cf_tpu_torch.evaluation.evaluate import recommend, retrieval_inputs
@@ -1112,34 +1133,40 @@ def check_eval_topk(trainer, name):
                                                      fused_topk_ids_plain)
     from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
-    args = (trainer.model, trainer.params, trainer.buffers, trainer.dataset, "val")
+    args = (trainer.model, trainer.params, trainer.buffers, trainer.dataset,
+            split)
     with torch.no_grad():
-        got = recommend(*args, K)
-        ur, it, ew, banned = retrieval_inputs(*args)
+        got = recommend(*args, K, banned)
+        ur, it, ew, banned_row = retrieval_inputs(*args, banned)
         n = ur.shape[0]
         want, same, gap = [], 0, 0.0
         for a in range(0, n, EVAL_CHECK_CHUNK):
             sl = slice(a, a + EVAL_CHECK_CHUNK)
-            w = fused_topk_ids_plain(ur[sl], it, ew[sl], banned, k=K)
+            w = fused_topk_ids_plain(ur[sl], it, ew[sl], banned_row, k=K)
             s, g = topk_agree(got[sl], w,
-                              plain_scores(ur[sl], it, ew[sl], banned, LI),
+                              plain_scores(ur[sl], it, ew[sl], banned_row, LI),
                               TOPK_RTOL)
             want.append(w)
             same, gap = same + s, max(gap, g)
-        ms = cuda_ms(lambda: recommend(*args, K), reps=5)
-        k5_ms = cuda_ms(lambda: fused_topk_ids(ur, it, ew, banned, k=K), reps=5)
-    val = trainer.dataset.val
-    ndcg_k = calculate_metrics_device(got, val, [K])["NDCG"][K]
-    ndcg_p = calculate_metrics_device(torch.cat(want), val, [K])["NDCG"][K]
+        ms = cuda_ms(lambda: recommend(*args, K, banned), reps=5)
+        k5_ms = cuda_ms(lambda: fused_topk_ids(ur, it, ew, banned_row, k=K),
+                        reps=5)
+    if exact and same != n:
+        raise AssertionError(f"{name}: K5's ids differ from the plain "
+                             f"version's in {n - same} of {n} rows")
+    lists = getattr(trainer.dataset, split)
+    ndcg_k = calculate_metrics_device(got, lists, [K])["NDCG"][K]
+    ndcg_p = calculate_metrics_device(torch.cat(want), lists, [K])["NDCG"][K]
     # a user's NDCG lies in [0, 1]: the means differ by at most the share of
     # users whose lists differ
     if not abs(ndcg_k - ndcg_p) <= (n - same) / n:
         raise AssertionError(f"{name} eval NDCG@{K} {ndcg_k} through K5 vs "
                              f"{ndcg_p} plain, with {n - same} of {n} lists "
                              "differing")
+    n_banned = 0 if banned is None else len(banned)
     log(f"# {name} K5 at the eval's shape: {n} users x {it.shape[1]} padded "
-        f"items, d={ur.shape[1]}, trained reps, val exclusion: {same}/{n} rows "
-        f"identical, max score gap "
+        f"items, d={ur.shape[1]}, {split} exclusion, {n_banned} banned items: "
+        f"{same}/{n} rows identical, max score gap "
         f"{gap:.3g}; NDCG@{K} {ndcg_k:.6f} vs plain {ndcg_p:.6f}; eval "
         f"retrieval (reps + K5) {ms:.4f} ms; K5 alone {k5_ms:.4f} ms "
         f"({topk_launch_line(n, it.shape[1], K)})")
@@ -1250,7 +1277,184 @@ def phase_gcn(full):
     return launches
 
 
-# -- phase 8: the kernel-microbenchmark tools ---------------------------------------
+# -- phase 8: the command line's flows -------------------------------------------
+
+
+class _Tee:
+    """Stdout that also keeps what was written."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def write_text_dataset(full) -> Path:
+    """The catalog in the reference text format under .smoke/text/1/, written
+    once (into a temporary directory, then renamed) and reused."""
+    import shutil
+
+    path = CACHE_DIR / "text" / "1"
+    if not path.is_dir():
+        tmp = path.with_name(f"1.tmp{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        full.output(str(tmp))
+        os.replace(tmp, path)
+    return path
+
+
+def _slice_lines(out, header):
+    """The six slice lines after ``header``, each up to ' Precision'."""
+    lines = out.splitlines()
+    start = lines.index(header)
+    return [line.split(" Precision")[0] for line in lines[start + 1:start + 7]]
+
+
+def phase_cli(full, smi):
+    """The port's command line in-process, at the Gowalla presets, cut to
+    one epoch, with .smoke/cli/ as the working directory (checkpoints land
+    there): IGCN and MF ``run``, ``derive`` and IGCN ``dropit``, ``derive``
+    and IGCN and LightGCN ``dropui``. Each flow is driven with the counts
+    set to 0 just before and read just after; its printed lines, P builds
+    and launches are checked. Then K5 against its plain version on two of
+    the flows' evals: IGCN dropui's all users / new items slice (every old
+    item banned) and Popularity's all/all eval (integer scores that tie).
+    Returns the launch counts of the flows."""
+    import shutil
+
+    import torch
+
+    from igcn_cf_tpu_torch.cli import main as cli
+    from igcn_cf_tpu_torch.evaluation import inductive
+    from igcn_cf_tpu_torch.kernels import _build, pcache
+    from igcn_cf_tpu_torch.train.trainer import BasicTrainer
+
+    from igcn_cf_tpu_torch.data.dataset import get_dataset
+
+    text = write_text_dataset(full)
+    t0 = time.perf_counter()
+    loaded = get_dataset({"name": "ProcessedDataset", "path": str(text)})
+    log(f"# CLI text split: {loaded.n_users}x{loaded.n_items}, {len(loaded)} "
+        f"train, read by get_dataset in {time.perf_counter() - t0:.3f} s "
+        "(host)")
+    if loaded.train != full.train or loaded.n_users != full.n_users:
+        raise AssertionError("the text split does not read back as written")
+    del loaded
+    work = CACHE_DIR / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    log_dir = work / "log"
+    split = ["--data-path", str(text)]
+    epoch = ["--n-epochs", "1"]
+    run_lines = [r"^Epoch 0/1, Loss: \d+\.\d+, Time: ",
+                 r"^Validation result\. Precision: [\d.]+%@20, Recall: ",
+                 r"^Best NDCG, save model to checkpoints/{}_\w+_Gowalla_[\d.]+\.pkl$",
+                 r"^Test result\. Precision: [\d.]+%@20, "]
+    six = ["All users and all items result.", "Old users and all items result.",
+           "New users and all items result.", "All users and old items result.",
+           "All users and new items result.", "Old users and old items result."]
+    flows = [
+        ("IGCN run", ["run", "--config", "2", *split, *epoch, "--log-dir",
+                      str(log_dir)], "IGCN", run_lines),
+        ("MF run", ["run", "--config", "0", *split, *epoch], "MF", run_lines),
+        ("derive dropit", ["derive", "--kind", "dropit", "--path", str(text)],
+         None, []),
+        ("IGCN dropit", ["dropit", "--config", "2", *split, *epoch], "IGCN",
+         run_lines[:3] + [r"^Previous interactions test result\. Precision: ",
+                          r"^Updated interactions test result\. Precision: "]),
+        ("derive dropui", ["derive", "--kind", "dropui", "--path", str(text)],
+         None, []),
+        ("IGCN dropui", ["dropui", "--config", "2", *split, *epoch], "IGCN",
+         run_lines[:3] + ["^Inductive results\\.$", "^Popularity model results\\.$"]),
+        ("LightGCN dropui", ["dropui", "--config", "1", *split, *epoch],
+         "LightGCN",
+         run_lines[:3] + ["^Inductive results\\.$", "^Popularity model results\\.$"]),
+    ]
+    launches = {k: 0 for k in _build.LAUNCHES}
+    evals = {}  # flow -> [(trainer, n_old_users, n_old_items)] of its slices
+    old_cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for name, argv, model, patterns in flows:
+            seen = evals.setdefault(name, [])
+
+            def record(trainer, n_old_users, n_old_items, _seen=seen,
+                       _eval=inductive.inductive_eval):
+                _seen.append((trainer, n_old_users, n_old_items))
+                return _eval(trainer, n_old_users, n_old_items)
+
+            tee = _Tee(sys.stdout)
+            with mock.patch.object(pcache, "build_prop_cache",
+                                   wraps=pcache.build_prop_cache) as builds, \
+                    mock.patch.object(inductive, "inductive_eval", record), \
+                    contextlib.redirect_stdout(tee):
+                sync()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                cli.main(argv)
+                sync()
+                wall = time.perf_counter() - t0
+                counted = dict(_build.LAUNCHES)
+            gc.collect()  # the flow's trainers and their P
+            torch.cuda.empty_cache()
+            out = tee.text()
+            for pattern in patterns:
+                pattern = pattern.format(model)
+                if not any(re.search(pattern, line) for line in out.splitlines()):
+                    raise AssertionError(f"{name}: no line matches {pattern!r}")
+            if "nan" in out.lower():
+                raise AssertionError(f"{name}: a NaN in its output")
+            if "dropui" in argv[0]:
+                if (_slice_lines(out, "Inductive results.") != six
+                        or _slice_lines(out, "Popularity model results.") != six):
+                    raise AssertionError(f"{name}: not the six slice lines")
+            for k, v in counted.items():
+                launches[k] += v
+            log(f"# CLI {name}: {wall:.3f} s wall ({smi}); P builds "
+                f"{builds.call_count}; K5 launches {counted['K5']}; launches "
+                f"{ {k: v for k, v in counted.items() if v} }")
+            # one P a trained IGCN/LightGCN model, none for an eval-only
+            # trainer, MF or derive
+            want_builds = 1 if model in ("IGCN", "LightGCN") else 0
+            if builds.call_count > want_builds:
+                raise AssertionError(f"{name}: {builds.call_count} P builds")
+            if name == "IGCN run":
+                check_launches(counted, TRAIN_KERNELS, "CLI IGCN run")
+    finally:
+        os.chdir(old_cwd)
+    with open(log_dir / "metrics.jsonl") as f:
+        tags = {json.loads(line)["tag"] for line in f}
+    want = {f"IGCN_IGCNTrainer/{stage}_{m}@{K}" for stage in ("train", "validation")
+            for m in ("Precision", "Recall", "NDCG")}
+    want |= {"IGCN_IGCNTrainer/train_loss", "IGCN_IGCNTrainer/examples_per_s"}
+    if not want <= tags:
+        raise AssertionError(f"metrics.jsonl lacks {sorted(want - tags)}")
+    log(f"# CLI IGCN run's metrics.jsonl: {len(tags)} tags {sorted(tags)}")
+
+    # K5 on the IGCN dropui flow's all users / new items slice and on its
+    # Popularity floor's all/all eval
+    (igcn, n_old_users, n_old_items), (pop, _, _) = evals["IGCN dropui"]
+    ds = igcn.dataset
+    new_items = ds.with_splits(test=[[i for i in t if i >= n_old_items]
+                                     for t in ds.test])
+    sliced = BasicTrainer.for_eval(igcn.config, new_items, igcn.model,
+                                   igcn.params, igcn.buffers)
+    check_eval_topk(sliced, "IGCN dropui all users / new items", "test",
+                    banned=np.arange(n_old_items))
+    check_eval_topk(pop, "Popularity all/all", "test", exact=True)
+    log(f"# launches during the CLI flows: {launches}")
+    return launches
+
+
+# -- phase 9: the kernel-microbenchmark tools ---------------------------------------
 
 
 def check_dropped_pair(rng, full):
@@ -1707,7 +1911,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     gcn_launches = phase_gcn(full)
     torch.cuda.empty_cache()
-    earlier = [serve_launches, train_launches, gcn_launches]
+    cli_launches = phase_cli(full, smi)
+    torch.cuda.empty_cache()
+    earlier = [serve_launches, train_launches, gcn_launches, cli_launches]
     stray = {k: sum(run[k] for run in earlier) for k in TOOL_ONLY}
     if any(stray.values()):
         raise AssertionError(f"the tools' kernels launched on an earlier path: "

@@ -95,3 +95,15 @@ class LightGCN(Model):
         )
         self.pcache = False
         return super().rebuild_for(new_dataset)
+
+    def grow_params(self, params, old_n_users, old_n_items):
+        """dropui's recipe: grow the table to the new node count; new rows
+        get the MEAN of the old embeddings, and the old user and item rows
+        move to their shifted slots (reference
+        run/dropui/lgcn_dropui.py:31-38). Call after ``rebuild_for``, which
+        sets the new counts."""
+        old = params["embedding"].detach()
+        new = old.mean(dim=0).expand(self.n_users + self.n_items, -1).clone()
+        new[:old_n_users] = old[:old_n_users]
+        new[self.n_users : self.n_users + old_n_items] = old[old_n_users:]
+        return {"embedding": new}

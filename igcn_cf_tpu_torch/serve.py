@@ -67,6 +67,12 @@ class Recommender:
         buffers = model.refresh_buffers(model.init_buffers())
         return cls(model, params, buffers, exclude=exclude)
 
+    @classmethod
+    def from_trainer(cls, trainer, *, exclude: str = "train"):
+        """Serve a trainer's current params and buffers on its device."""
+        return cls(trainer.model, trainer.params, trainer.buffers,
+                   exclude=exclude)
+
     @property
     def device(self) -> torch.device:
         return self.model.device

@@ -56,6 +56,45 @@ def get_trainer(config: dict, dataset, model):
 @TRAINERS.register("BasicTrainer")
 class BasicTrainer:
     def __init__(self, trainer_config: dict, dataset, model):
+        self._init_settings(trainer_config, dataset, model)
+        # the engine A/B measures at the batch size the trainer runs
+        model.ab_batch = self.batch_size
+        # the model's parameter tree (nested for NGCF), and the same leaf
+        # tensors by dotted name for torch.optim and per-name checks
+        self.params = {}
+        if model.trainable:
+            self.params = map_tree(lambda v: v.requires_grad_(),
+                                   model.init_params(self.keys.generator()))
+        self.flat_params = flatten_tree(self.params)
+        self.buffers = model.init_buffers()
+        self.opt = None
+        if model.trainable and "optimizer" in trainer_config:
+            self.initialize_optimizer()
+        self.gen = self.keys.generator(self.device)
+        if model.trainable:
+            self.sampler = DeviceNegativeSampler.build(dataset, self.device)
+            bip = self.buffers.get("bip")
+            if bip is not None:
+                # the dense engine's packed B answers membership in O(1)
+                self.sampler = self.sampler.with_dense_b(bip.B)
+
+    @classmethod
+    def for_eval(cls, trainer_config: dict, dataset, model, params, buffers):
+        """A trainer that evaluates the given ``params`` and ``buffers`` over
+        ``dataset`` and does nothing else. Unlike the constructor it makes
+        no init params, buffers, sampler or optimizer: ``init_buffers``
+        would build the graph again, and a second propagation cache P
+        where the model still has its cache engine on, only to be
+        replaced."""
+        trainer = cls.__new__(cls)
+        trainer._init_settings(trainer_config, dataset, model)
+        trainer.params = params
+        trainer.flat_params = flatten_tree(params)
+        trainer.buffers = buffers
+        trainer.opt = None
+        return trainer
+
+    def _init_settings(self, trainer_config: dict, dataset, model):
         self.config = dict(trainer_config)
         self.name = trainer_config["name"]
         self.dataset = dataset
@@ -77,26 +116,6 @@ class BasicTrainer:
             "state_path", os.path.join("checkpoints", "train_state.pkl"))
         self.keys = KeySeq(trainer_config.get("seed", 2021))
         self.batch_size = trainer_config.get("batch_size", 2048)
-        # the engine A/B measures at the batch size the trainer runs
-        model.ab_batch = self.batch_size
-        # the model's parameter tree (nested for NGCF), and the same leaf
-        # tensors by dotted name for torch.optim and per-name checks
-        self.params = {}
-        if model.trainable:
-            self.params = map_tree(lambda v: v.requires_grad_(),
-                                   model.init_params(self.keys.generator()))
-        self.flat_params = flatten_tree(self.params)
-        self.buffers = model.init_buffers()
-        self.opt = None
-        if model.trainable and "optimizer" in trainer_config:
-            self.initialize_optimizer()
-        self.gen = self.keys.generator(self.device)
-        if model.trainable:
-            self.sampler = DeviceNegativeSampler.build(dataset, self.device)
-            bip = self.buffers.get("bip")
-            if bip is not None:
-                # the dense engine's packed B answers membership in O(1)
-                self.sampler = self.sampler.with_dense_b(bip.B)
 
     # -- optimizer ----------------------------------------------------------
 
@@ -121,6 +140,13 @@ class BasicTrainer:
     def eval(self, val_or_test: str, banned_items=None):
         return evaluate(self.model, self.params, self.buffers, self.dataset,
                         val_or_test, self.topks, banned_items)
+
+    def inductive_eval(self, n_old_users: int, n_old_items: int):
+        """The six-slice inductive evaluation of the test split
+        (``evaluation/inductive.py``)."""
+        from igcn_cf_tpu_torch.evaluation.inductive import inductive_eval
+
+        return inductive_eval(self, n_old_users, n_old_items)
 
     # -- full-state checkpoint / resume -------------------------------------
 
@@ -170,7 +196,13 @@ class BasicTrainer:
         copy_params_(self.params, self.model.load(path))
         self.buffers = self.model.refresh_buffers(self.buffers)
 
-    def train(self, verbose: bool = True) -> float:
+    def train(self, verbose: bool = True, writer=None) -> float:
+        """The reference loop. With a ``writer`` (``utils.logging
+        .MetricsWriter``), each epoch also evaluates the train split, as the
+        reference does for its TensorBoard writer (reference
+        trainer.py:71-78), and records the loss, examples/s and the train
+        and validation metrics; without one that eval is skipped, since
+        nothing would read it."""
         if not self.model.trainable:
             results, metrics = self.eval("val")
             if verbose:
@@ -179,15 +211,25 @@ class BasicTrainer:
 
         os.makedirs("checkpoints", exist_ok=True)
         patience = self.max_patience
+        examples_per_epoch = self.steps_per_epoch() * self.batch_size
+        tag = f"{self.model.name}_{self.name}"
         for self.epoch in range(self.start_epoch, self.n_epochs):
             start_time = time.time()
             loss = self.train_one_epoch()
             record = {"epoch": self.epoch, "loss": loss,
                       "train_s": time.time() - start_time}
             self.history.append(record)
+            train_metrics = self.eval("train")[1] if writer else None
             if verbose:
                 print("Epoch {:d}/{:d}, Loss: {:.6f}, Time: {:.3f}s".format(
-                    self.epoch, self.n_epochs, loss, record["train_s"]))
+                    self.epoch, self.n_epochs, loss, time.time() - start_time))
+            if writer:
+                writer.add_scalar(f"{tag}/train_loss", loss, self.epoch)
+                writer.add_scalar(f"{tag}/examples_per_s",
+                                  examples_per_epoch / max(record["train_s"], 1e-9),
+                                  self.epoch)
+                writer.record(self.model.name, self.name, "train",
+                              train_metrics, self.epoch)
             if (self.epoch + 1) % self.val_interval != 0:
                 if self.state_interval and (self.epoch + 1) % self.state_interval == 0:
                     self.save_state()
@@ -200,6 +242,9 @@ class BasicTrainer:
             if verbose:
                 print("Validation result. {:s}Time: {:.3f}s".format(
                     results, record["val_s"]))
+            if writer:
+                writer.record(self.model.name, self.name, "validation",
+                              metrics, self.epoch)
             early_stop = False
             if ndcg > self.best_ndcg:
                 if self.save_path and os.path.exists(self.save_path):

@@ -84,8 +84,9 @@ def test_unknown_ranking_metric_raises(tiny_ds):
 
 
 def test_registry_holds_the_ported_models():
-    assert all(name in MODELS for name in ("IGCN", "IMF", "LightGCN", "NGCF"))
-    assert "MF" not in MODELS  # not ported yet: get_model refuses it
+    assert all(name in MODELS for name in ("IGCN", "IMF", "LightGCN", "NGCF",
+                                           "MF", "Popularity"))
+    assert "ItemKNN" not in MODELS  # not ported yet: get_model refuses it
     reg = Registry("thing")
     reg.register("a")(object)
     with pytest.raises(KeyError):

@@ -14,6 +14,14 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any "import jax" now raises ImportError
 sys.modules["igcn_cf_tpu"] = None
+import contextlib, io, runpy
+sys.argv = ["igcn_cf_tpu_torch.cli.main", "--help"]  # python -m ... --help
+with contextlib.redirect_stdout(io.StringIO()) as help_text:
+    try:
+        runpy.run_module("igcn_cf_tpu_torch.cli.main", run_name="__main__")
+        raise AssertionError("--help did not exit")
+    except SystemExit as exit:
+        assert exit.code == 0 and "dropui" in help_text.getvalue(), exit
 import igcn_cf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(igcn_cf_tpu_torch.__path__,
                                                "igcn_cf_tpu_torch.")]
