@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's IGCN serving and training paths, LightGCN and
-NGCF training, the command line's flows (run, dropit, dropui) and the four
-kernel-microbenchmark tools, once on one NVIDIA H100.
+NGCF training, the command line's flows (run, dropit, dropui), the four
+kernel-microbenchmark tools and the other five model families, once on one
+NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -109,7 +110,24 @@ Phases, each fatal on failure:
      ``microbench_pcache_tune`` and ``microbench_gather``) print their
      rows, with the counts set to 0 just before: K1m, K2m and T1-T5 must
      launch there, and on no earlier path.
-  10. output -- a JSON line of the kernels (each with its launches, error,
+  10. the model zoo -- K6/K7 at IMCGAE's d = 3 x 64 = 192 on the full B
+     against their plain versions, with events, the plain versions'
+     times, torch.sparse.mm and the bound; one IMCGAE step through the
+     kernels against the same step through the plain versions. Then, with
+     the counts set to 0 just before and read just after, one epoch of
+     each family at its Gowalla preset through ``get_model(...)`` and
+     ``get_trainer(...).train()``, then a val eval, each logged with its
+     wall, epoch and eval seconds and launches: IMCGAE (dense, K6/K7 six
+     times a step), IDCF_LGCN (4 heads, 50 samples, over phase 7's
+     LightGCN checkpoint; the sparse path), MultiVAE, NeuMF (one epoch a
+     stage, all three stages) and ItemKNN (its similarity build on the
+     host). Then K5 at IMCGAE's (d=192) and IDCF's eval shapes against its
+     plain version; the score-matrix masked top-k of a NeuMF and an ItemKNN
+     block on the card against the same scores' on the CPU, ids identical;
+     IDCF's sparse propagate_mean and its gradient twice, bit-identical,
+     and within 1e-5 of the CPU; ItemKNN's build (k = 1,000) at the
+     quarter-Gowalla catalog of tools/parity_run.py, timed.
+  11. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -148,7 +166,8 @@ CACHE_DIR = ROOT / ".smoke"
 # the serving slice (bench.py:41-43 shape)
 N_USERS, N_ITEMS, AVG_DEG, SEED = 29858, 40981, 34.4, 2021
 # each model's index among the Gowalla presets (configs.get_config)
-PRESETS = {"LightGCN": 1, "IGCN": 2, "NGCF": 4}
+PRESETS = {"LightGCN": 1, "IGCN": 2, "ItemKNN": 3, "NGCF": 4, "MultiVAE": 5,
+           "IMCGAE": 7, "IDCF_LGCN": 8, "NeuMF": 9}
 RECOMPUTE_STEPS = 20
 REQUEST_SIZES = (512, 4096)
 K = 20
@@ -223,6 +242,12 @@ TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8p")
 GCN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
 TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K8p",
                 "K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
+ZOO_KERNELS = ("K5", "K6", "K7")
+# the five families of phase 10, in the order they run
+ZOO = ("IMCGAE", "IDCF_LGCN", "MultiVAE", "NeuMF", "ItemKNN")
+# tools/parity_run.py:55-58's quarter-Gowalla catalog, for ItemKNN's build
+QUARTER = dict(n_users=N_USERS // 4, n_items=N_ITEMS // 4, avg_degree=9,
+               seed=77, name="parity_q")
 # launched by the microbenchmark tools and nowhere else
 TOOL_ONLY = ("K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
 
@@ -1237,7 +1262,8 @@ def phase_gcn(full):
     driven with the counts set to 0 just before and read just after. After
     each epoch, K5 at that model's eval shape against its plain version;
     after NGCF's, one step through the kernels against the plain versions.
-    Returns the launch counts of the two training runs."""
+    Returns the launch counts of the two training runs and the path of
+    LightGCN's best checkpoint."""
     import torch
 
     from igcn_cf_tpu_torch.kernels import _build
@@ -1246,6 +1272,7 @@ def phase_gcn(full):
     trainer, epoch = train_one_epoch("LightGCN", *gowalla_preset("LightGCN"),
                                      full, cache_engine=True)
     launches = dict(_build.LAUNCHES)
+    lgcn_ckpt = CACHE_DIR / trainer.save_path  # IDCF's frozen table (phase 10)
     steps = trainer.steps_per_epoch()
     if not epoch["K3"] == epoch["K4"] == steps:
         raise AssertionError(f"LightGCN launched K3/K4 {epoch['K3']}/"
@@ -1274,7 +1301,7 @@ def phase_gcn(full):
                              f"or not {width} wide")
     check_eval_topk(trainer, "NGCF")
     check_step(trainer, "NGCF")
-    return launches
+    return launches, lgcn_ckpt
 
 
 # -- phase 8: the command line's flows -------------------------------------------
@@ -1891,6 +1918,260 @@ def phase_tools():
     return launches
 
 
+# -- phase 10: the model zoo ---------------------------------------------------------
+
+DEVICE = "cuda"  # the card phase 1 checked; phase 10 names it once
+
+
+def zoo_preset(name, lgcn_ckpt):
+    """``name``'s Gowalla preset as ``gowalla_preset`` cuts it; NeuMF with
+    one epoch a stage (3 epochs, so all three stages run), IDCF over phase
+    7's LightGCN checkpoint."""
+    model_cfg, trainer_cfg = gowalla_preset(name)
+    if name == "NeuMF":
+        trainer_cfg.update(n_epochs=3, mf_pretrain_epochs=1,
+                           mlp_pretrain_epochs=1)
+    if name == "IDCF_LGCN":
+        model_cfg = dict(model_cfg, lgcn_path=str(lgcn_ckpt))
+    return model_cfg, trainer_cfg
+
+
+def check_wide_products(rng, full):
+    """K6/K7 at IMCGAE's d = 3 * 64 = 192 on the full training B against
+    their plain versions: error, ms by events, the plain version's ms,
+    ``torch.sparse.mm`` on a CSR copy of B and the bound. Returns the
+    rows for the log."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import bitpack
+    from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    d = 3 * gowalla_preset("IMCGAE")[0]["embedding_size"]
+    g = BipartiteDense.build(full.train_array, full.n_users, full.n_items, DEVICE)
+    m, kw = g.B.shape
+    b, bt, nnz = csr_pair(g.B)
+    out = {}
+    for name, kern, plain, rows, csr, t2 in (
+            ("K6", bitpack.mm_fwd, bitpack.mm_fwd_plain, kw * 32, b, False),
+            ("K7", bitpack.mm_bwd, bitpack.mm_bwd_plain, m, bt, True)):
+        x = torch.as_tensor(rng.standard_normal((rows, d), np.float32)).to(DEVICE)
+        got, want = kern(g.B, x), plain(g.B, x)
+        sync()
+        torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+        row = {"max_abs_err": float((got - want).abs().max()),
+               "ms": cuda_ms(lambda: kern(g.B, x)),
+               "plain_ms": cuda_ms(lambda: plain(g.B, x), reps=5),
+               **sparse_yardstick(csr, x, g.B, got.shape[0], nnz)}
+        out[name] = row
+        log(f"# {name} d={d} on the full B {m}x{kw} words, X {rows}x{d}: "
+            f"max_abs_err {row['max_abs_err']:.3g}, {row['ms']:.4f} ms vs plain "
+            f"{row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"{launch_shape(t2, m, kw, d)}")
+    return out
+
+
+def zoo_epoch(name, model_cfg, trainer_cfg, full):
+    """``name`` through ``get_model`` and ``get_trainer(...).train()`` (its
+    epochs and their val evals; ItemKNN: its build and one val eval), then
+    one more val eval, timed. The losses must be finite and the NDCG a
+    number in [0, 1]. Returns the trainer and its launches."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    start = dict(_build.LAUNCHES)
+    sync()
+    t0 = time.perf_counter()
+    model = get_model(model_cfg, full, DEVICE)
+    trainer = get_trainer(trainer_cfg, full, model)
+    sync()
+    init_s = time.perf_counter() - t0
+    old_cwd = os.getcwd()
+    os.chdir(CACHE_DIR)  # the best checkpoints land in .smoke/checkpoints
+    try:
+        best = trainer.train(verbose=False)
+    finally:
+        os.chdir(old_cwd)
+    sync()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, metrics = trainer.eval("val")
+    sync()
+    eval_s = time.perf_counter() - t0
+    launches = {k: v - start[k] for k, v in _build.LAUNCHES.items()}
+    ndcg = metrics["NDCG"][K]
+    if not 0.0 <= ndcg <= 1.0:
+        raise AssertionError(f"{name}: val NDCG@{K} {ndcg}")
+    epochs = "; ".join(
+        f"epoch {r['epoch']} loss {r['loss']:.6f} in {r['train_s']:.3f} s, val "
+        f"NDCG@{K} {r['ndcg']:.6f} in {r['val_s']:.3f} s" for r in trainer.history)
+    if model.trainable:
+        losses = trainer.step_losses.float().cpu()
+        if not bool(torch.isfinite(losses).all()) or not all(
+                np.isfinite(r["loss"]) for r in trainer.history):
+            raise AssertionError(f"{name}: non-finite losses")
+        epochs += (f"; last epoch's {len(losses)} steps, loss first "
+                   f"{float(losses[0]):.6f} -> last {float(losses[-1]):.6f}")
+    log(f"# zoo {name}: init {init_s:.3f} s"
+        + (" (the similarity build)" if name == "ItemKNN" else "")
+        + f"; train() {wall:.3f} s wall ({epochs or 'no epoch'}); best "
+        f"{best:.6f}; val eval {eval_s:.3f} s, NDCG@{K} {ndcg:.6f}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return trainer, launches
+
+
+def check_score_topk(trainer, name):
+    """The score-matrix path's masked top-k of one block of users on the
+    card against the same scores' top-k on the CPU: ids identical, the
+    lowest id first among equal scores. Logs the block's predict and
+    top-k times."""
+    import torch
+
+    from igcn_cf_tpu_torch.evaluation.evaluate import exclusion_ids, mask_topk
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    model, ds = trainer.model, trainer.dataset
+    users = torch.arange(min(trainer.test_batch_size, ds.n_users), device=DEVICE)
+    with torch.no_grad():
+        scores = model.predict(trainer.params, trainer.buffers, users)
+        exclude = exclusion_ids(ds, "val", DEVICE)[users]
+        got = mask_topk(scores, exclude, None, K)
+        want = mask_topk(scores.cpu(), exclude.cpu(), None, K)
+        if not torch.equal(got.cpu(), want):
+            bad = int((got.cpu() != want).any(dim=1).nonzero()[0, 0])
+            raise AssertionError(f"{name}: card and CPU top-k differ in row "
+                                 f"{bad}: {got[bad].tolist()} vs {want[bad].tolist()}")
+        top = torch.gather(scores, 1, got.long())
+        tied = int((top[:, 1:] == top[:, :-1]).any(dim=1).sum())
+        predict_ms = cuda_ms(lambda: model.predict(trainer.params,
+                                                   trainer.buffers, users),
+                             reps=3, warmup=1)
+        topk_ms = cuda_ms(lambda: mask_topk(scores, exclude, None, K))
+    log(f"# {name} score-matrix top-k, {len(users)} users x {ds.n_items} items: "
+        f"card ids identical to the CPU's on every row ({tied} rows with tied "
+        f"scores in their top {K}); predict {predict_ms:.4f} ms, mask + stable "
+        f"sort {topk_ms:.4f} ms")
+
+
+def check_sparse_determinism(trainer):
+    """``propagate_mean`` over IDCF's sym-normalized adjacency and its
+    gradient, twice on the card: bit-identical; and within f32 tolerance of
+    the same on the CPU."""
+    import torch
+
+    from igcn_cf_tpu_torch.graph.build import sym_norm_adjacency
+    from igcn_cf_tpu_torch.kernels.sparse import SparseGraph, propagate_mean
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    g = trainer.buffers["norm_adj"]
+    n_layers = trainer.model.n_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    x = torch.randn((g.n_rows, 64), generator=gen, device=DEVICE)
+    ct = torch.randn((g.n_rows, 64), generator=gen, device=DEVICE)
+
+    def run(graph, x0, cot):
+        xt = x0.clone().requires_grad_()
+        y = propagate_mean(graph, xt, n_layers)
+        (dx,) = torch.autograd.grad(y, xt, cot)
+        return y.detach(), dx
+
+    (y1, dx1), (y2, dx2) = run(g, x, ct), run(g, x, ct)
+    sync()
+    if not (torch.equal(y1, y2) and torch.equal(dx1, dx2)):
+        raise AssertionError("the sparse path differs between two calls")
+    ds = trainer.dataset
+    host = SparseGraph.from_coo(sym_norm_adjacency(ds.train_array, ds.n_users,
+                                                   ds.n_items), device="cpu")
+    y_cpu, dx_cpu = run(host, x.cpu(), ct.cpu())
+    torch.testing.assert_close(y1.cpu(), y_cpu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dx1.cpu(), dx_cpu, rtol=1e-5, atol=1e-6)
+    fwd_ms = cuda_ms(lambda: propagate_mean(g, x, n_layers))
+    both_ms = cuda_ms(lambda: run(g, x, ct))
+    log(f"# sparse propagate_mean ({n_layers} layers, {g.nnz} entries, d=64): "
+        f"forward and gradient bit-identical over two calls on the card, "
+        f"within 1e-5 of the CPU's; forward {fwd_ms:.4f} ms, forward + "
+        f"backward {both_ms:.4f} ms")
+
+
+def time_knn_build(smi):
+    """ItemKNN's similarity build (k = 1,000) at the quarter-Gowalla
+    catalog of tools/parity_run.py, timed on the host."""
+    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.models.knn import SIM_THREADS, ItemKNN
+
+    k = gowalla_preset("ItemKNN")[0]["k"]
+    quarter = synthetic_interactions(**QUARTER)
+    t0 = time.perf_counter()
+    model = ItemKNN({"name": "ItemKNN", "k": k}, quarter, DEVICE)
+    build_s = time.perf_counter() - t0
+    log(f"# ItemKNN build at the quarter-Gowalla catalog ({quarter.n_users} x "
+        f"{quarter.n_items}, average degree 9, seed 77; {len(quarter)} train), "
+        f"k={k}: {build_s:.3f} s on the host ({SIM_THREADS} threads; "
+        f"{model.sim_mat.nnz} entries; {smi})")
+
+
+def phase_zoo(full, lgcn_ckpt, smi):
+    """IMCGAE, IDCF_LGCN, MultiVAE, NeuMF and ItemKNN. First K6/K7 at
+    IMCGAE's d=192 on the full B and one IMCGAE step through the kernels
+    against the plain versions. Then the main path, driven with the counts
+    set to 0 just before and read just after: each family at its Gowalla
+    preset through the user's entry points (one epoch; NeuMF 1 + 1 + 1;
+    IDCF over phase 7's LightGCN checkpoint), with its val evals. Then K5
+    at IMCGAE's (d=192) and IDCF's eval shapes against its plain version,
+    the score-matrix top-k of NeuMF and ItemKNN on the card against the
+    CPU, the sparse path twice, and ItemKNN's build at the quarter
+    catalog. Returns the main path's launch counts."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    rng = np.random.default_rng(192)
+    check_wide_products(rng, full)
+    model_cfg, trainer_cfg = zoo_preset("IMCGAE", lgcn_ckpt)
+    step_trainer = get_trainer(trainer_cfg, full,
+                               get_model(model_cfg, full, DEVICE))
+    check_step(step_trainer, "IMCGAE")
+    del step_trainer
+
+    _build.reset_launches()
+    trainers, per_family = {}, {}
+    for name in ZOO:
+        trainers[name], per_family[name] = zoo_epoch(
+            name, *zoo_preset(name, lgcn_ckpt), full)
+    launches = dict(_build.LAUNCHES)
+    log(f"# launches during the model zoo: {launches}")
+    check_launches(launches, ZOO_KERNELS, "model zoo")
+    imcgae = trainers["IMCGAE"]
+    steps = imcgae.steps_per_epoch()
+    for kid in ("K6", "K7"):  # 3 layers, forward and backward
+        if per_family["IMCGAE"][kid] < 6 * steps:
+            raise AssertionError(f"IMCGAE launched {kid} "
+                                 f"{per_family['IMCGAE'][kid]} times in {steps} "
+                                 "steps")
+    if trainers["NeuMF"].model.arch != "neumf":
+        raise AssertionError("NeuMF did not reach its neumf stage")
+    for name in ("MultiVAE", "NeuMF", "ItemKNN"):
+        if any(per_family[name].values()):
+            raise AssertionError(f"{name} launched a kernel: {per_family[name]}")
+
+    check_eval_topk(imcgae, "IMCGAE")
+    check_eval_topk(trainers["IDCF_LGCN"], "IDCF_LGCN")
+    check_score_topk(trainers["NeuMF"], "NeuMF")
+    check_score_topk(trainers["ItemKNN"], "ItemKNN")
+    check_sparse_determinism(trainers["IDCF_LGCN"])
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_knn_build(smi)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1909,7 +2190,7 @@ def main() -> int:
     check_step(trainer_rc, "recompute engine")
     del trainer, trainer_rc  # and their 10 GB P
     torch.cuda.empty_cache()
-    gcn_launches = phase_gcn(full)
+    gcn_launches, lgcn_ckpt = phase_gcn(full)
     torch.cuda.empty_cache()
     cli_launches = phase_cli(full, smi)
     torch.cuda.empty_cache()
@@ -1928,7 +2209,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     kern.update(check_gather_probe())
     tool_launches = phase_tools()
-    runs = earlier + [tool_launches]
+    torch.cuda.empty_cache()
+    zoo_launches = phase_zoo(full, lgcn_ckpt, smi)
+    stray = {k: zoo_launches[k] for k in TOOL_ONLY if zoo_launches[k]}
+    if stray:
+        raise AssertionError(f"the tools' kernels launched in the model zoo: "
+                             f"{stray}")
+    runs = earlier + [tool_launches, zoo_launches]
     log(f"# mask launches over the run: K8 (one seed) "
         f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
         f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "

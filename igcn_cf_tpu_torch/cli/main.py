@@ -10,8 +10,8 @@ device). Every flow is a subcommand:
 ``--config N`` selects the model triple by index as the reference does
 (``config[2]`` = IGCN, reference run/run.py:16). ``run``, ``dropit`` and
 ``dropui`` run on the card unless ``--device cpu`` is given; where no card
-is visible they raise. A config whose model is not ported yet fails with
-the model registry's error. Not ported: ``tune`` and ``--mesh``.
+is visible they raise. Every preset's model is ported. Not ported:
+``tune`` and ``--mesh``.
 """
 
 from __future__ import annotations

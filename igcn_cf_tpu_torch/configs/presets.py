@@ -5,8 +5,7 @@ reference's hyperparameters (reference config.py:1-207): 10 Gowalla
 configs, 10 Yelp, 8 Amazon, indexed by position (index 2 = IGCN, the paper
 model -- reference run/run.py:16). Device fields and dataloader worker
 counts are dropped: the device is an argument of the port's models, and
-sampling runs on it. Ported so far: IGCN/IMF with IGCNTrainer, LightGCN and
-NGCF with BPRTrainer; ``get_model`` refuses the other names."""
+sampling runs on it. Every model and trainer they name is ported."""
 
 from __future__ import annotations
 

@@ -23,8 +23,9 @@ import numpy as np
 
 from igcn_cf_tpu_torch.core.registry import DATASETS
 
-# the evaluator's caches that depend on train and val only: exclusion items
-# and their packed words (evaluation/evaluate.py). ``_eval_pad_cache``
+# the evaluator's caches that depend on train and val only: exclusion items,
+# their packed words and their device copies (evaluation/evaluate.py).
+# ``_eval_pad_cache``
 # (evaluation/metrics.py) is keyed by split name but built from the split's
 # lists, so it is never carried: a derived test split would be scored
 # against the old lists.

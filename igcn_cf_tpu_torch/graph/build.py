@@ -1,7 +1,8 @@
-"""Host-side graph construction (port of the serving-path part of
+"""Host-side graph construction (port of part of
 ``igcn_cf_tpu/graph/build.py``): the bipartite adjacency as a row-sorted
-COO, node degrees, and INMO's template (core) user/item selection. Plain
-numpy; runs once per dataset and stays off the device."""
+COO, its symmetric normalization, node degrees, and INMO's template (core)
+user/item selection. Plain numpy; runs once per dataset and stays off the
+device."""
 
 from __future__ import annotations
 
@@ -24,6 +25,11 @@ class COO:
         order = np.lexsort((self.cols, self.rows))
         return COO(self.rows[order], self.cols[order], self.vals[order], self.shape)
 
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=np.float64)
+        np.add.at(out, (self.rows, self.cols), self.vals)
+        return out.astype(np.float32)
+
     @property
     def nnz(self) -> int:
         return int(self.rows.shape[0])
@@ -42,6 +48,15 @@ def bipartite_adjacency(train_array: np.ndarray, n_users: int, n_items: int) -> 
 
 def degrees(coo: COO) -> np.ndarray:
     return np.bincount(coo.rows, weights=coo.vals, minlength=coo.shape[0])
+
+
+def sym_norm_adjacency(train_array: np.ndarray, n_users: int, n_items: int) -> COO:
+    """D^-1/2 A D^-1/2 with degree floored at 1 (reference model.py:85-94)."""
+    adj = bipartite_adjacency(train_array, n_users, n_items)
+    deg = np.maximum(1.0, degrees(adj))
+    d_inv = np.power(deg, -0.5).astype(np.float32)
+    vals = adj.vals * d_inv[adj.rows] * d_inv[adj.cols]
+    return COO(adj.rows, adj.cols, vals, adj.shape)
 
 
 def select_templates(

@@ -17,8 +17,9 @@ layout through ``bb_matmul`` (K6/K7), as the propagation-cache build does.
 Every operator here is differentiable. Edge dropout draws are explicit
 arguments (``FeatDrop``), drawn by the model: the INMO feature aggregation
 masks B once per direction (``mask_words_pair``, one pass for both), NGCF
-masks inside K6m/K7m (``bb_matmul_dropped``). The sparse COO backend
-(``kernels/sparse.py``) is not ported.
+masks inside K6m/K7m (``bb_matmul_dropped``). Catalogs whose packed B
+does not fit the device's budget take the sparse COO backend
+(``kernels/sparse.py``).
 """
 
 from __future__ import annotations
@@ -290,9 +291,9 @@ def dense_fits(n_users: int, n_items: int, budget: int) -> bool:
 def choose_backend(n_users: int, n_items: int, requested: str = "auto",
                    device="cuda") -> str:
     """'dense' (the bit-packed engine) whenever the packed matrix fits the
-    device's budget; 'dense_lean' is accepted as the JAX package's round-1
-    alias of 'dense'. The sparse COO backend is not ported: asking for it,
-    or a catalog too large for dense, raises."""
+    device's budget, else 'sparse' (the COO path of ``kernels/sparse.py``);
+    'dense' and 'sparse' may also be asked for by name, and 'dense_lean' is
+    the JAX package's round-1 alias of 'dense'."""
     device = _build.require_device(device)
     if requested == "dense_lean":
         return "dense"
@@ -303,8 +304,14 @@ def choose_backend(n_users: int, n_items: int, requested: str = "auto",
         and dense_fits(n_users, n_items, dense_budget_bytes(device))
     ):
         return "dense"
-    raise NotImplementedError(
-        f"graph backend 'sparse' (needed for {n_users} x {n_items} with "
-        f"{requested!r}) is not ported yet: see ROADMAP.md queue 1, "
-        "'Remaining models and trainers', the kernels/sparse.py COO fallback"
-    )
+    return "sparse"
+
+
+def require_dense(model_name: str, backend: str) -> None:
+    """Refuse the sparse backend for a model whose sparse branch is not
+    ported yet."""
+    if backend != "dense":
+        raise NotImplementedError(
+            f"{model_name} has no sparse graph backend in the port yet: see "
+            "ROADMAP.md queue 1, 'The sparse branches of IGCN/IMF, LightGCN "
+            "and NGCF'")

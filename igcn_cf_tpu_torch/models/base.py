@@ -79,6 +79,9 @@ class Model(nn.Module):
     and ``rep``, and trainable ones ``bpr_pieces``."""
 
     trainable: bool = True
+    # scoring is users_rep @ items_rep^T over ``rep``: evaluation ranks
+    # through fused retrieval (K5). Other models implement ``predict``.
+    dot_scored: bool = False
 
     def __init__(self, config: dict, dataset, device="cuda"):
         super().__init__()
@@ -108,6 +111,12 @@ class Model(nn.Module):
 
     def bpr_pieces(self, params: Params, buffers: Buffers, users, pos, neg, *,
                    train: bool, drop=None) -> Tuple[torch.Tensor, ...]:
+        raise NotImplementedError
+
+    def predict(self, params: Params, buffers: Buffers,
+                users: torch.Tensor) -> torch.Tensor:
+        """(B, n_items) scores of ``users`` over the catalog, for a model
+        that is not ``dot_scored`` (the reference's ``predict``)."""
         raise NotImplementedError
 
     def draw_drop(self, keys, generator: torch.Generator):

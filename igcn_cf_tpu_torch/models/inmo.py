@@ -20,7 +20,8 @@
     training time get representations over the old templates, with zero new
     parameters.
 
-Only the dense graph backend exists in the port.
+Only the dense graph backend is ported for these models: the constructor
+refuses 'sparse' (``require_dense``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import (
     BipartiteDense,
     FeatDrop,
     choose_backend,
+    require_dense,
     feat_aggregate,
     sym_norm_propagate_mean,
 )
@@ -43,6 +45,7 @@ from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 @MODELS.register("IGCN")
 class IGCN(Model):
+    dot_scored = True  # users_rep @ items_rep^T: fused retrieval (K5)
     supports_pcache = True  # the propagation operator is fixed in training
 
     def __init__(self, config, dataset, device="cuda"):
@@ -59,6 +62,7 @@ class IGCN(Model):
             self.n_users, self.n_items, config.get("graph_backend", "auto"),
             self.device,
         )
+        require_dense(self.name, self.backend)
         self.pcache = self.supports_pcache and use_pcache(
             self.n_users, self.n_items, self.n_layers,
             config.get("prop_cache", "auto"), self.device,
@@ -249,6 +253,7 @@ class IGCN(Model):
             self.n_users, self.n_items,
             self.config.get("graph_backend", "auto"), self.device,
         )
+        require_dense(self.name, self.backend)
         self.pcache = False
         return self.init_buffers()
 

@@ -10,7 +10,8 @@ LightGCN has no dropout, so its propagation operator is fixed for a whole
 run: on the propagation-cache engine (``kernels/pcache.py``) a train step
 propagates only its 3 * batch rows, P[rows] @ E (K3 forward, K4 backward).
 The recompute engine and evaluation run the exact bit-packed propagation
-(K1/K2). Only the dense graph backend exists in the port.
+(K1/K2). Only the dense graph backend is ported for LightGCN: the
+constructor refuses 'sparse' (``require_dense``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from igcn_cf_tpu_torch.core.registry import MODELS
 from igcn_cf_tpu_torch.kernels.dense_graph import (
     BipartiteDense,
     choose_backend,
+    require_dense,
     sym_norm_propagate_mean,
 )
 from igcn_cf_tpu_torch.kernels.pcache import cached_prop, use_pcache
@@ -29,6 +31,8 @@ from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 @MODELS.register("LightGCN")
 class LightGCN(Model):
+    dot_scored = True  # users_rep @ items_rep^T: fused retrieval (K5)
+
     def __init__(self, config, dataset, device="cuda"):
         super().__init__(config, dataset, device)
         self.embedding_size = config["embedding_size"]
@@ -37,6 +41,7 @@ class LightGCN(Model):
             self.n_users, self.n_items, config.get("graph_backend", "auto"),
             self.device,
         )
+        require_dense(self.name, self.backend)
         self.pcache = use_pcache(
             self.n_users, self.n_items, self.n_layers,
             config.get("prop_cache", "auto"), self.device,
@@ -93,6 +98,7 @@ class LightGCN(Model):
             new_dataset.n_users, new_dataset.n_items,
             self.config.get("graph_backend", "auto"), self.device,
         )
+        require_dense(self.name, self.backend)
         self.pcache = False
         return super().rebuild_for(new_dataset)
 

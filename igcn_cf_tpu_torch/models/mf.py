@@ -17,6 +17,8 @@ from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 @MODELS.register("MF")
 class MF(Model):
+    dot_scored = True  # users_rep @ items_rep^T: fused retrieval (K5)
+
     def __init__(self, config, dataset, device="cuda"):
         super().__init__(config, dataset, device)
         self.embedding_size = config["embedding_size"]

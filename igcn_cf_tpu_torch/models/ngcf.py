@@ -9,8 +9,8 @@ normalization, and the CONCAT of every layer's output with layer 0, so the
 representation is (n, d + sum(layer_sizes)). Training drops edges of the
 adjacency and its self-loops once per forward, the same drop in every
 layer, inside kernels K6m/K7m (``ngcf_propagate``); BPR's L2 is taken on
-the concatenated propagated reps. Only the dense graph backend exists in
-the port.
+the concatenated propagated reps. Only the dense graph backend is ported
+for NGCF: the constructor refuses 'sparse' (``require_dense``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import (
     BipartiteDense,
     FeatDrop,
     choose_backend,
+    require_dense,
     ngcf_propagate,
 )
 from igcn_cf_tpu_torch.models.base import (
@@ -47,6 +48,8 @@ class NGCFDrop(NamedTuple):
 
 @MODELS.register("NGCF")
 class NGCF(Model):
+    dot_scored = True  # users_rep @ items_rep^T: fused retrieval (K5)
+
     def __init__(self, config, dataset, device="cuda"):
         super().__init__(config, dataset, device)
         self.embedding_size = config["embedding_size"]
@@ -57,6 +60,7 @@ class NGCF(Model):
             self.n_users, self.n_items, config.get("graph_backend", "auto"),
             self.device,
         )
+        require_dense(self.name, self.backend)
 
     def init_params(self, generator=None):
         n = self.n_users + self.n_items

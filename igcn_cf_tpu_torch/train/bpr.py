@@ -1,11 +1,13 @@
-"""BPR-family trainers (port of ``igcn_cf_tpu/train/bpr.py``): BPRTrainer
-and IGCNTrainer.
+"""BPR-family trainers (port of ``igcn_cf_tpu/train/bpr.py``): BPRTrainer,
+IGCNTrainer and IDCFTrainer.
 
   * BPR: softplus(neg_score - pos_score).mean() + l2_reg * l2.mean()
     (reference trainer.py:231-248);
   * IGCN adds the auxiliary self-enhanced BPR on raw template embeddings
     scored with w, weighted by aux_reg, and anneals the feature matrix each
-    epoch (reference trainer.py:294-320).
+    epoch (reference trainer.py:294-320);
+  * IDCF adds contrastive_reg * contrastive_loss.mean() (reference
+    trainer.py:261-278).
 
 A step samples its batch on the device, runs the model forward, takes the
 gradients with autograd and steps the optimizer. ``train_step`` takes the
@@ -104,3 +106,21 @@ class IGCNTrainer(_StepTrainer):
         aux_pos, aux_neg = self.model.aux_scores(params, *aux_batch)
         aux_loss = torch.mean(F.softplus(aux_neg - aux_pos))
         return bpr + self.l2_reg * torch.mean(l2) + self.aux_reg * aux_loss
+
+
+@TRAINERS.register("IDCFTrainer")
+class IDCFTrainer(BPRTrainer):
+    """BPRTrainer's steps; the model's draw is its heads' key samples."""
+
+    def __init__(self, config, dataset, model):
+        super().__init__(config, dataset, model)
+        self.contrastive_reg = config["contrastive_reg"]
+
+    def loss(self, params, batch, draw):
+        u_r, p_r, n_r, l2, contrastive = self.model.bpr_pieces_contrastive(
+            params, self.buffers, *batch, train=True, drop=draw)
+        pos_scores = torch.sum(u_r * p_r, dim=1)
+        neg_scores = torch.sum(u_r * n_r, dim=1)
+        bpr = torch.mean(F.softplus(neg_scores - pos_scores))
+        return (bpr + self.l2_reg * torch.mean(l2)
+                + self.contrastive_reg * torch.mean(contrastive))

@@ -116,6 +116,8 @@ class BasicTrainer:
             "state_path", os.path.join("checkpoints", "train_state.pkl"))
         self.keys = KeySeq(trainer_config.get("seed", 2021))
         self.batch_size = trainer_config.get("batch_size", 2048)
+        # users per score block of the non-dot models' evaluation
+        self.test_batch_size = trainer_config.get("test_batch_size", 512)
 
     # -- optimizer ----------------------------------------------------------
 
@@ -139,7 +141,8 @@ class BasicTrainer:
 
     def eval(self, val_or_test: str, banned_items=None):
         return evaluate(self.model, self.params, self.buffers, self.dataset,
-                        val_or_test, self.topks, banned_items)
+                        val_or_test, self.topks, banned_items,
+                        self.test_batch_size)
 
     def inductive_eval(self, n_old_users: int, n_old_items: int):
         """The six-slice inductive evaluation of the test split

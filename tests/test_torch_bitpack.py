@@ -212,10 +212,9 @@ def test_choose_backend():
     assert dense_graph.choose_backend(60, 80, device="cpu") == "dense"
     assert dense_graph.choose_backend(60, 80, "dense", device="cpu") == "dense"
     assert dense_graph.choose_backend(10**6, 10**6, "dense", device="cpu") == "dense"
-    with pytest.raises(NotImplementedError, match="sparse"):
-        dense_graph.choose_backend(60, 80, "sparse", device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        dense_graph.choose_backend(10**6, 10**6, device="cpu")  # too large for the budget
+    assert dense_graph.choose_backend(60, 80, "sparse", device="cpu") == "sparse"
+    # too large for the budget: the sparse COO path
+    assert dense_graph.choose_backend(10**6, 10**6, device="cpu") == "sparse"
     # the JAX package's round-1 alias (dense_graph.py:327-328)
     assert dense_graph.choose_backend(60, 80, "dense_lean", device="cpu") == "dense"
     with pytest.raises(ValueError):

@@ -17,9 +17,16 @@ from igcn_cf_tpu.configs import get_config as jax_get_config
 from igcn_cf_tpu.utils.logging import MetricsWriter as JaxMetricsWriter
 from igcn_cf_tpu_torch.cli import flows
 from igcn_cf_tpu_torch.cli.main import build_parser, main
+from igcn_cf_tpu_torch.configs import get_config as cli_get_config
 from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
-from igcn_cf_tpu_torch.models.knn import Popularity
+from igcn_cf_tpu_torch.models.base import get_model
+from igcn_cf_tpu_torch.models.knn import ItemKNN, Popularity
+from igcn_cf_tpu_torch.kernels.sparse import SparseGraph
+from igcn_cf_tpu_torch.models.idcf import IDCF_LGCN
+from igcn_cf_tpu_torch.models.imcgae import IMCGAE
 from igcn_cf_tpu_torch.models.mf import MF
+from igcn_cf_tpu_torch.models.multivae import MultiVAE
+from igcn_cf_tpu_torch.models.neumf import NeuMF
 
 SPLIT = "data/Gowalla/1"
 SIX = ["All users and all items result.", "Old users and all items result.",
@@ -81,12 +88,62 @@ def test_run_prints_saves_and_logs_as_jax(workdir, capsys):
 
 
 def test_mf_runs_and_unported_models_fail(workdir, capsys):
+    """MF and ItemKNN (config 3, once unported) run; a model name the
+    registry does not hold still raises."""
     _cli("run", "--config", "0", "--data-path", SPLIT)
     out = capsys.readouterr().out
     assert "Test result. Precision: " in out
     assert list((workdir / "checkpoints").glob("MF_BPRTrainer_Gowalla_*.pkl"))
-    with pytest.raises(KeyError, match="unknown model 'ItemKNN'"):
-        _cli("run", "--config", "3", "--data-path", SPLIT)
+    _cli("run", "--config", "3", "--data-path", SPLIT)
+    kinds = _kinds(capsys.readouterr().out)
+    assert kinds == ["Validation result. Precision: ", "Test result. Precision: "]
+    with pytest.raises(KeyError, match="unknown model 'Nope'"):
+        get_model({"name": "Nope"}, None, "cpu")
+
+
+@pytest.fixture()
+def short_presets(monkeypatch):
+    """The presets with NeuMF's stages cut to one epoch each and IDCF's
+    LightGCN pretraining to two, so 3 epochs run all of NeuMF's stages."""
+    from igcn_cf_tpu_torch.cli import main as cli
+
+    def get_config(dataset, index, data_path=None):
+        dc, mc, tc = (dict(c) for c in cli_get_config(dataset, index))
+        if mc["name"] == "NeuMF":
+            tc.update(mf_pretrain_epochs=1, mlp_pretrain_epochs=1)
+        if mc["name"] == "IDCF_LGCN":
+            mc.update(lgcn_pretrain_epochs=2, lgcn_pretrain_val_interval=1)
+        return dc, mc, tc
+
+    monkeypatch.setattr(cli, "get_config", get_config)
+
+
+@pytest.mark.parametrize("config,name,trainer", [
+    ("5", "MultiVAE", "MLTrainer"), ("7", "IMCGAE", "BPRTrainer"),
+    ("8", "IDCF_LGCN", "IDCFTrainer"), ("9", "NeuMF", "BCETrainer")])
+def test_new_model_configs_run(workdir, capsys, short_presets, config, name,
+                               trainer):
+    epochs = 3 if name == "NeuMF" else 1
+    _cli("run", "--config", config, "--data-path", SPLIT, epochs=epochs)
+    out = capsys.readouterr().out
+    kinds = _kinds(out)
+    assert kinds.count("Epoch ") == epochs
+    assert kinds[-1] == "Test result. Precision: "
+    assert list((workdir / "checkpoints").glob(f"{name}_{trainer}_Gowalla_*.pkl"))
+    if name == "IDCF_LGCN":  # its LightGCN table, pretrained where missing
+        assert (workdir / "lgcn.pkl").exists()
+
+
+@pytest.mark.parametrize("config", ["3", "5", "7", "8"],
+                         ids=["ItemKNN", "MultiVAE", "IMCGAE", "IDCF_LGCN"])
+def test_new_models_dropui(workdir, capsys, short_presets, config):
+    main(["derive", "--kind", "dropui", "--path", SPLIT])
+    _cli("dropui", "--config", config, "--data-path", SPLIT + "_dropui",
+         epochs=1)
+    out = capsys.readouterr().out.splitlines()
+    start = out.index("Inductive results.")
+    assert [line.split(" Precision")[0] for line in out[start + 1:start + 7]] == SIX
+    assert out[start + 7] == "Popularity model results."
 
 
 def test_derive_dropit_and_dropui(workdir, capsys):
@@ -147,7 +204,9 @@ def test_profile_and_debug_nans(workdir):
 
 @pytest.mark.parametrize("fn", [
     flows.train_eval_transductive, flows.run_dropit, flows.run_dropui,
-    MF.__init__, Popularity.__init__], ids=lambda f: f.__qualname__)
+    MF.__init__, Popularity.__init__, ItemKNN.__init__, IMCGAE.__init__,
+    IDCF_LGCN.__init__, MultiVAE.__init__, NeuMF.__init__,
+    SparseGraph.from_coo], ids=lambda f: f.__qualname__)
 def test_flows_and_new_models_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

@@ -84,9 +84,12 @@ def test_unknown_ranking_metric_raises(tiny_ds):
 
 
 def test_registry_holds_the_ported_models():
-    assert all(name in MODELS for name in ("IGCN", "IMF", "LightGCN", "NGCF",
-                                           "MF", "Popularity"))
-    assert "ItemKNN" not in MODELS  # not ported yet: get_model refuses it
+    from igcn_cf_tpu.core.registry import MODELS as JAX_MODELS
+
+    assert MODELS.names() == JAX_MODELS.names()  # all eleven
+    assert len(MODELS.names()) == 11
+    with pytest.raises(KeyError, match="unknown model 'Nope'"):
+        MODELS.get("Nope")
     reg = Registry("thing")
     reg.register("a")(object)
     with pytest.raises(KeyError):

@@ -61,6 +61,12 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     "igcn_cf_tpu_torch.evaluation.evaluate",
                                     "igcn_cf_tpu_torch.models.lightgcn",
                                     "igcn_cf_tpu_torch.models.ngcf",
+                                    "igcn_cf_tpu_torch.models.imcgae",
+                                    "igcn_cf_tpu_torch.models.idcf",
+                                    "igcn_cf_tpu_torch.models.knn",
+                                    "igcn_cf_tpu_torch.train.ml",
+                                    "igcn_cf_tpu_torch.train.bce",
+                                    "igcn_cf_tpu_torch.kernels.sparse",
                                     "igcn_cf_tpu_torch.tools.microbench_dual",
                                     "igcn_cf_tpu_torch.tools.microbench_pcache",
                                     "igcn_cf_tpu_torch.tools.microbench_pcache_tune",
