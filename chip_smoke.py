@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's IGCN serving and training paths, LightGCN and
 NGCF training, the command line's flows (run, dropit, dropui), the four
-kernel-microbenchmark tools and the other five model families, once on one
-NVIDIA H100.
+kernel-microbenchmark tools, the other five model families, and the sparse
+graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run, once
+on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -127,7 +128,23 @@ Phases, each fatal on failure:
      IDCF's sparse propagate_mean and its gradient twice, bit-identical,
      and within 1e-5 of the CPU; ItemKNN's build (k = 1,000) at the
      quarter-Gowalla catalog of tools/parity_run.py, timed.
-  11. output -- a JSON line of the kernels (each with its launches, error,
+  11. the sparse graph branches -- with the counts set to 0 just before
+     and read just after, one epoch of IGCN (d=64, 3 layers, dropout 0.3),
+     IMF, LightGCN and NGCF (layers [64, 64, 64], dropout 0.1) each at its
+     Gowalla preset on ``graph_backend='sparse'`` through ``get_model(...)``
+     and ``get_trainer(...).train()``, then a val eval, each logged with
+     its epoch seconds, step ms, eval seconds and launches: the evals must
+     launch K5, and no dense product kernel (K1/K2, K3/K4, K6/K7, K6m/K7m,
+     K8/K8p) may launch. Then, outside the count: each family's sparse
+     representations against its dense ones for the same params (no
+     dropout) within 2e-2 of the largest magnitude (the JAX package's
+     tests/test_dense_backend.py:46-54); one sparse IGCN and one sparse
+     NGCF step, loss and gradients, bit-identical over two runs on the
+     card and within the step tolerance of the same step on the CPU with
+     the same keep masks; K5 at each family's eval shape identical to its
+     plain version. Then, counted again, ``tools/parity_run`` cut to two
+     epochs into a scratch path: all four models train and evaluate.
+  12. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -167,7 +184,7 @@ CACHE_DIR = ROOT / ".smoke"
 N_USERS, N_ITEMS, AVG_DEG, SEED = 29858, 40981, 34.4, 2021
 # each model's index among the Gowalla presets (configs.get_config)
 PRESETS = {"LightGCN": 1, "IGCN": 2, "ItemKNN": 3, "NGCF": 4, "MultiVAE": 5,
-           "IMCGAE": 7, "IDCF_LGCN": 8, "NeuMF": 9}
+           "IMF": 6, "IMCGAE": 7, "IDCF_LGCN": 8, "NeuMF": 9}
 RECOMPUTE_STEPS = 20
 REQUEST_SIZES = (512, 4096)
 K = 20
@@ -245,6 +262,14 @@ TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K8p",
 ZOO_KERNELS = ("K5", "K6", "K7")
 # the five families of phase 10, in the order they run
 ZOO = ("IMCGAE", "IDCF_LGCN", "MultiVAE", "NeuMF", "ItemKNN")
+# the four families of phase 11, on the sparse graph backend
+SPARSE = ("IGCN", "IMF", "LightGCN", "NGCF")
+# the kernels that read the bit-packed B or P: none may launch on the
+# sparse branches, whose only kernel is K5 in their evals
+DENSE_PRODUCTS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K8p")
+# sparse vs dense representations: the dense backend rounds each layer's
+# input to bf16 (the JAX package's tests/test_dense_backend.py:46-54)
+DENSE_REP_REL = 2e-2
 # tools/parity_run.py:55-58's quarter-Gowalla catalog, for ItemKNN's build
 QUARTER = dict(n_users=N_USERS // 4, n_items=N_ITEMS // 4, avg_degree=9,
                seed=77, name="parity_q")
@@ -796,28 +821,12 @@ def phase_kernels(full):
 
 def load_dataset():
     """The Gowalla-scale synthetic catalog, from the cache or generated."""
-    from igcn_cf_tpu_torch.data.dataset import Interactions
-    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.data.synthetic import cached_synthetic_interactions
 
-    path = CACHE_DIR / f"synth_{N_USERS}x{N_ITEMS}_s{SEED}.npz"
-    if path.exists():
-        z = np.load(path)
-        splits = []
-        for name in ("train", "val", "test"):
-            bounds = np.cumsum(z[name + "_len"])[:-1]
-            splits.append([a.tolist() for a in np.split(z[name], bounds)])
-        return Interactions("gowalla_scale_synth", N_USERS, N_ITEMS, *splits)
-    ds = synthetic_interactions(n_users=N_USERS, n_items=N_ITEMS,
-                                avg_degree=AVG_DEG, seed=SEED,
-                                name="gowalla_scale_synth")
-    CACHE_DIR.mkdir(exist_ok=True)
-    arrays = {}
-    for name in ("train", "val", "test"):
-        split = getattr(ds, name)
-        arrays[name + "_len"] = np.array([len(x) for x in split], np.int64)
-        arrays[name] = np.fromiter((i for x in split for i in x), np.int64)
-    np.savez(path, **arrays)
-    return ds
+    return cached_synthetic_interactions(
+        CACHE_DIR / f"synth_{N_USERS}x{N_ITEMS}_s{SEED}.npz", n_users=N_USERS,
+        n_items=N_ITEMS, avg_degree=AVG_DEG, seed=SEED,
+        name="gowalla_scale_synth")
 
 
 def write_checkpoint(reduced, rng) -> Path:
@@ -1972,7 +1981,7 @@ def check_wide_products(rng, full):
     return out
 
 
-def zoo_epoch(name, model_cfg, trainer_cfg, full):
+def zoo_epoch(name, model_cfg, trainer_cfg, full, label="zoo"):
     """``name`` through ``get_model`` and ``get_trainer(...).train()`` (its
     epochs and their val evals; ItemKNN: its build and one val eval), then
     one more val eval, timed. The losses must be finite and the NDCG a
@@ -2016,7 +2025,7 @@ def zoo_epoch(name, model_cfg, trainer_cfg, full):
             raise AssertionError(f"{name}: non-finite losses")
         epochs += (f"; last epoch's {len(losses)} steps, loss first "
                    f"{float(losses[0]):.6f} -> last {float(losses[-1]):.6f}")
-    log(f"# zoo {name}: init {init_s:.3f} s"
+    log(f"# {label} {name}: init {init_s:.3f} s"
         + (" (the similarity build)" if name == "ItemKNN" else "")
         + f"; train() {wall:.3f} s wall ({epochs or 'no epoch'}); best "
         f"{best:.6f}; val eval {eval_s:.3f} s, NDCG@{K} {ndcg:.6f}; launches "
@@ -2172,6 +2181,193 @@ def phase_zoo(full, lgcn_ckpt, smi):
     return launches
 
 
+# -- phase 11: the sparse graph branches and the parity tool -----------------------
+
+
+def sparse_preset(name):
+    """``name``'s Gowalla preset as ``gowalla_preset`` cuts it, on the sparse
+    graph backend."""
+    model_cfg, trainer_cfg = gowalla_preset(name)
+    return dict(model_cfg, graph_backend="sparse"), trainer_cfg
+
+
+def check_sparse_vs_dense(trainer, name):
+    """The trained sparse model's representations against a dense model's
+    for the same params (and alpha), without dropout: within DENSE_REP_REL
+    of the largest magnitude."""
+    import torch
+
+    from igcn_cf_tpu_torch.models.base import get_model
+
+    model = trainer.model
+    dense = get_model(dict(model.config, graph_backend="dense",
+                           prop_cache=False), trainer.dataset, DEVICE)
+    if hasattr(model, "alpha"):
+        dense.alpha = model.alpha
+    with torch.no_grad():
+        rep_s = model.rep(trainer.params, trainer.buffers)
+        rep_d = dense.rep(trainer.params, dense.init_buffers())
+        scale = float(rep_s.abs().max())
+        err = float((rep_d - rep_s).abs().max()) / scale
+    sync()
+    if not err <= DENSE_REP_REL:
+        raise AssertionError(f"{name}: sparse and dense reps differ by {err:.3g} "
+                             "of the largest magnitude")
+    log(f"# {name} sparse vs dense reps ({tuple(rep_s.shape)}, same params, no "
+        f"dropout): max error {err:.3g} of the largest magnitude {scale:.4g} "
+        f"(tolerance {DENSE_REP_REL})")
+
+
+def _drop_to(drop, device):
+    """A step's sparse draw (``EdgeKeep``, or NGCF's with its feature
+    keeps) on ``device``."""
+    from igcn_cf_tpu_torch.kernels.sparse import EdgeKeep
+    from igcn_cf_tpu_torch.models.ngcf import NGCFDrop
+
+    if isinstance(drop, EdgeKeep):
+        return EdgeKeep(drop.keep.to(device))
+    return NGCFDrop(EdgeKeep(drop.edge.keep.to(device)),
+                    [f.to(device) for f in drop.feat])
+
+
+def check_sparse_step(trainer, name):
+    """One sparse step's loss and gradients: twice on the card,
+    bit-identical; and against the same step on the CPU (the same params,
+    alpha, batch and keep masks), loss within STEP_LOSS_RTOL and each
+    gradient within STEP_GRAD_REL of its largest magnitude."""
+    import torch
+
+    from igcn_cf_tpu_torch.convert import copy_params_
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    inputs = trainer.sample_step()
+
+    def loss_and_grads(t, step_inputs):
+        params = list(t.flat_params.values())
+        loss = t.loss(t.params, *step_inputs)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    t0 = time.perf_counter()
+    (loss_a, grads_a), (loss_b, grads_b) = (loss_and_grads(trainer, inputs),
+                                            loss_and_grads(trainer, inputs))
+    sync()
+    card_s = (time.perf_counter() - t0) / 2
+    if not (torch.equal(loss_a, loss_b)
+            and all(torch.equal(a, b) for a, b in zip(grads_a, grads_b))):
+        raise AssertionError(f"sparse {name} step differs between two runs")
+    model = trainer.model
+    cpu_model = get_model(model.config, trainer.dataset, "cpu")
+    if hasattr(model, "alpha"):
+        cpu_model.alpha = model.alpha
+    cpu = get_trainer(trainer.config, trainer.dataset, cpu_model)
+    copy_params_(cpu.params, trainer.params)
+    *batches, drop = inputs
+    cpu_inputs = [tuple(x.cpu() for x in batch) for batch in batches]
+    cpu_inputs.append(_drop_to(drop, "cpu"))
+    t0 = time.perf_counter()
+    loss_c, grads_c = loss_and_grads(cpu, cpu_inputs)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(loss_a) - float(loss_c)) / abs(float(loss_c))
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"sparse {name} step loss {float(loss_a)} on the "
+                             f"card vs {float(loss_c)} on the CPU")
+    worst = 0.0
+    for leaf, gk, gc_ in zip(trainer.flat_params, grads_a, grads_c):
+        err = float((gk.cpu() - gc_).abs().max()) / float(gc_.abs().max())
+        worst = max(worst, err)
+        if not err <= STEP_GRAD_REL:
+            raise AssertionError(f"sparse {name} step grad of {leaf}: max "
+                                 f"error {err:.3g} of its largest magnitude")
+    log(f"# sparse {name} step: loss and gradients bit-identical over two runs "
+        f"on the card ({1e3 * card_s:.3f} ms a forward + backward); vs the CPU "
+        f"with the same keep masks: loss {float(loss_a):.8f} vs "
+        f"{float(loss_c):.8f} (rel {rel:.3g}), gradients max error {worst:.3g} "
+        f"of their largest magnitude (CPU {cpu_s:.3f} s)")
+
+
+def run_parity_cut(smi):
+    """``tools/parity_run`` at two epochs a model, into a scratch path: all
+    four models train and evaluate on the card. Returns the results."""
+    from igcn_cf_tpu_torch.tools import parity_run
+
+    out = CACHE_DIR / "parity_cut.json"
+    out.unlink(missing_ok=True)
+    old_cwd = os.getcwd()
+    os.chdir(CACHE_DIR)  # the best checkpoints land in .smoke/checkpoints
+    t0 = time.perf_counter()
+    try:
+        results = parity_run.main(["--epochs", "2", "--out", str(out)], DEVICE)
+    finally:
+        os.chdir(old_cwd)
+    wall = time.perf_counter() - t0
+    saved = json.loads(out.read_text())
+    names = [name for name, _, _ in parity_run.CONFIGS]
+    if list(saved) != names or saved != json.loads(json.dumps(results)):
+        raise AssertionError(f"parity_run wrote {list(saved)}, not {names}")
+    for name, record in saved.items():
+        if record["epochs"] != 2 or record["device"] != smi or not (
+                0.0 <= record["test"]["NDCG"]["20"] <= 1.0):
+            raise AssertionError(f"parity_run {name}: {record}")
+    log(f"# parity_run --epochs 2: {wall:.3f} s wall; " + "; ".join(
+        f"{name} test NDCG@20 {r['test']['NDCG']['20']:.6f} ({r['backend']}, "
+        f"{r['engine']}, {r['train_seconds']:.3f} s)" for name, r in saved.items()))
+    return saved
+
+
+def phase_sparse(full, smi):
+    """IGCN, IMF, LightGCN and NGCF on the sparse graph backend. The main
+    path is counted: (a) one epoch of each at its Gowalla preset through
+    the user's entry points, with its val evals (K5 only), and (c)
+    ``tools/parity_run`` cut to two epochs. Between them, uncounted, the
+    checks (b): sparse vs dense reps, the sparse IGCN and NGCF steps
+    twice on the card and against the CPU, and K5 at each eval's shape
+    against its plain version. Returns the counted launches."""
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    trainers, per_family = {}, {}
+    for name in SPARSE:
+        trainer, per_family[name] = zoo_epoch(name, *sparse_preset(name), full,
+                                              label="sparse")
+        trainers[name] = trainer
+        if trainer.model.backend != "sparse" or "bip" in trainer.buffers:
+            raise AssertionError(f"{name} is not on the sparse backend")
+        record = trainer.history[-1]
+        steps = trainer.steps_per_epoch()
+        log(f"# sparse {name}: epoch {record['train_s']:.3f} s, "
+            f"{1e3 * record['train_s'] / steps:.3f} ms a step over {steps} "
+            f"steps, val {record['val_s']:.3f} s ({smi})")
+    launches = dict(_build.LAUNCHES)
+    log(f"# launches during the sparse epochs: {launches}")
+    dense = {k: launches[k] for k in DENSE_PRODUCTS if launches[k]}
+    if dense:
+        raise AssertionError(f"dense product kernels launched on the sparse "
+                             f"branches: {dense}")
+    for name in SPARSE:
+        if per_family[name]["K5"] < 2:  # train()'s val eval and one more
+            raise AssertionError(f"sparse {name}'s evals launched K5 "
+                                 f"{per_family[name]['K5']} times")
+
+    for name in SPARSE:
+        check_sparse_vs_dense(trainers[name], name)
+    check_sparse_step(trainers["IGCN"], "IGCN")
+    check_sparse_step(trainers["NGCF"], "NGCF")
+    for name in SPARSE:
+        check_eval_topk(trainers[name], f"sparse {name}", exact=True)
+    del trainers, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    run_parity_cut(smi)
+    launches = {k: v + _build.LAUNCHES[k] for k, v in launches.items()}
+    log(f"# launches during the sparse epochs and the parity cut: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2215,7 +2411,13 @@ def main() -> int:
     if stray:
         raise AssertionError(f"the tools' kernels launched in the model zoo: "
                              f"{stray}")
-    runs = earlier + [tool_launches, zoo_launches]
+    torch.cuda.empty_cache()
+    sparse_launches = phase_sparse(full, smi)
+    stray = {k: sparse_launches[k] for k in TOOL_ONLY if sparse_launches[k]}
+    if stray:
+        raise AssertionError(f"the tools' kernels launched on the sparse "
+                             f"branches: {stray}")
+    runs = earlier + [tool_launches, zoo_launches, sparse_launches]
     log(f"# mask launches over the run: K8 (one seed) "
         f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
         f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "

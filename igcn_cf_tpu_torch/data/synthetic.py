@@ -8,6 +8,8 @@ with average degree 34.4 is the Gowalla-scale benchmark catalog.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
 from igcn_cf_tpu_torch.data.dataset import Interactions
@@ -67,3 +69,30 @@ def synthetic_interactions(
         val.append(items[n_train : n - n_test] if n_test else [])
         test.append(items[n - n_test :] if n_test else [])
     return Interactions(name, n_users, n_items, train, val, test)
+
+
+def cached_synthetic_interactions(path, **kwargs) -> Interactions:
+    """``synthetic_interactions(**kwargs)``, read from the npz at ``path``
+    when it is there, else generated and written there first (a catalog of
+    the Gowalla scale takes about a minute to draw). The npz holds each
+    split as its concatenated items and per-user lengths."""
+    path = Path(path)
+    name = kwargs.get("name", "synthetic")
+    if path.exists():
+        z = np.load(path)
+        splits = []
+        for split in ("train", "val", "test"):
+            bounds = np.cumsum(z[split + "_len"])[:-1]
+            splits.append([a.tolist() for a in np.split(z[split], bounds)])
+        return Interactions(name, kwargs["n_users"], kwargs["n_items"], *splits)
+    ds = synthetic_interactions(**kwargs)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = {}
+    for split in ("train", "val", "test"):
+        lists = getattr(ds, split)
+        arrays[split + "_len"] = np.array([len(x) for x in lists], np.int64)
+        arrays[split] = np.fromiter((i for x in lists for i in x), np.int64)
+    tmp = path.with_name(path.stem + ".tmp.npz")
+    np.savez(tmp, **arrays)
+    tmp.replace(path)
+    return ds

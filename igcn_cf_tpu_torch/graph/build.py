@@ -1,8 +1,8 @@
-"""Host-side graph construction (port of part of
-``igcn_cf_tpu/graph/build.py``): the bipartite adjacency as a row-sorted
-COO, its symmetric normalization, node degrees, and INMO's template (core)
-user/item selection. Plain numpy; runs once per dataset and stays off the
-device."""
+"""Host-side graph construction (port of ``igcn_cf_tpu/graph/build.py``):
+the bipartite adjacency as a row-sorted COO, its symmetric normalization,
+NGCF's L1-row-normalized A + I, node degrees, INMO's template (core)
+user/item selection and its feature matrix. Plain numpy; runs once per
+dataset and stays off the device."""
 
 from __future__ import annotations
 
@@ -57,6 +57,94 @@ def sym_norm_adjacency(train_array: np.ndarray, n_users: int, n_items: int) -> C
     d_inv = np.power(deg, -0.5).astype(np.float32)
     vals = adj.vals * d_inv[adj.rows] * d_inv[adj.cols]
     return COO(adj.rows, adj.cols, vals, adj.shape)
+
+
+def l1_norm_adjacency_with_self_loops(
+    train_array: np.ndarray, n_users: int, n_items: int
+) -> COO:
+    """(A + I) with L1 row normalization, for NGCF (reference model.py:255-261)."""
+    adj = bipartite_adjacency(train_array, n_users, n_items)
+    n = n_users + n_items
+    eye = np.arange(n, dtype=np.int32)
+    rows = np.concatenate([adj.rows, eye])
+    cols = np.concatenate([adj.cols, eye])
+    vals = np.concatenate([adj.vals, np.ones(n, dtype=np.float32)])
+    rowsum = np.bincount(rows, weights=vals, minlength=n)
+    rowsum = np.where(rowsum == 0.0, 1.0, rowsum)
+    vals = (vals / rowsum[rows]).astype(np.float32)
+    return COO(rows, cols, vals, (n, n)).sort_by_row()
+
+
+# -- INMO template feature matrix (reference model.py:386-421) ---------------
+
+
+@dataclass(frozen=True)
+class FeatMat:
+    """INMO feature structure.
+
+    ``coo`` is the binary pattern (values all 1); the annealed edge weights
+    ``row_sum[row]^((alpha-1)/2 - 1/2)`` (reference model.py:374-377) are
+    recomputed on the device from ``row_sum`` and the scalar alpha each
+    epoch: the pattern never changes, so only a value vector is rebuilt.
+
+    Shape: (n_users + n_items, n_core_users + n_core_items + 2); the last two
+    columns are the shared "user" and "item" token embeddings.
+    """
+
+    coo: COO
+    row_sum: np.ndarray  # (n_users+n_items,) float32
+    user_map: Dict[int, int]
+    item_map: Dict[int, int]
+
+    @property
+    def n_templates(self) -> int:
+        return self.coo.shape[1]
+
+
+def build_feat_mat(
+    train_array: np.ndarray,
+    n_users: int,
+    n_items: int,
+    user_map: Dict[int, int],
+    item_map: Dict[int, int],
+) -> FeatMat:
+    """A user row lists its train items in template item space, an item row
+    its train users in template user space (nodes that are not templates
+    are skipped as neighbours), and every row its role token. Users and
+    items that are not templates still get rows: the inductive mechanism."""
+    user_dim, item_dim = len(user_map), len(item_map)
+    um = np.full(n_users, -1, dtype=np.int64)
+    for u, k in user_map.items():
+        um[u] = k
+    im = np.full(n_items, -1, dtype=np.int64)
+    for i, k in item_map.items():
+        im[i] = k
+
+    users = train_array[:, 0]
+    items = train_array[:, 1]
+    mapped_items = im[items]
+    keep_i = mapped_items >= 0
+    mapped_users = um[users]
+    keep_u = mapped_users >= 0
+    rows = np.concatenate([
+        users[keep_i],
+        n_users + items[keep_u],
+        np.arange(n_users, dtype=np.int64),
+        n_users + np.arange(n_items, dtype=np.int64),
+    ]).astype(np.int32)
+    cols = np.concatenate([
+        user_dim + mapped_items[keep_i],
+        mapped_users[keep_u],
+        np.full(n_users, user_dim + item_dim, dtype=np.int64),
+        np.full(n_items, user_dim + item_dim + 1, dtype=np.int64),
+    ]).astype(np.int32)
+    vals = np.ones(rows.shape[0], dtype=np.float32)
+    shape = (n_users + n_items, user_dim + item_dim + 2)
+    coo = COO(rows, cols, vals, shape).sort_by_row()
+    row_sum = np.bincount(coo.rows, weights=coo.vals, minlength=shape[0]).astype(
+        np.float32
+    )
+    return FeatMat(coo, row_sum, dict(user_map), dict(item_map))
 
 
 def select_templates(

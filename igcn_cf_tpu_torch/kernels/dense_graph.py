@@ -305,13 +305,3 @@ def choose_backend(n_users: int, n_items: int, requested: str = "auto",
     ):
         return "dense"
     return "sparse"
-
-
-def require_dense(model_name: str, backend: str) -> None:
-    """Refuse the sparse backend for a model whose sparse branch is not
-    ported yet."""
-    if backend != "dense":
-        raise NotImplementedError(
-            f"{model_name} has no sparse graph backend in the port yet: see "
-            "ROADMAP.md queue 1, 'The sparse branches of IGCN/IMF, LightGCN "
-            "and NGCF'")

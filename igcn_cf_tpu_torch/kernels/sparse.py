@@ -19,13 +19,14 @@ too.
 Edge dropout keeps the reference's semantics -- drop entries with prob p
 and scale survivors by 1/(1-p) (reference model.py:263-275) -- as a value
 mask; the structure never changes. The keep mask is an argument
-(``edge_dropout_vals``) or drawn from a ``torch.Generator``.
+(``edge_dropout_vals``; a model's step draw carries it as an ``EdgeKeep``)
+or drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -120,6 +121,22 @@ def spmm(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
 def spmm_transpose(g: SparseGraph, y: torch.Tensor) -> torch.Tensor:
     """Aᵀ @ dense: (n_cols, n_rows) @ (n_rows, d) -> (n_cols, d)."""
     return _SpmmFn.apply(g, y, True)
+
+
+class EdgeKeep(NamedTuple):
+    """One train step's edge dropout over a ``SparseGraph``: the (nnz,)
+    bool keep of its padded entries, as the JAX package draws it with
+    ``jax.random.bernoulli(key, 1 - p, (nnz,))``."""
+
+    keep: torch.Tensor
+
+
+def draw_edge_keep(nnz: int, dropout: float, generator: torch.Generator,
+                   device) -> EdgeKeep:
+    """An ``EdgeKeep`` of ``nnz`` entries, each kept with probability
+    1 - ``dropout``, drawn from ``generator`` on ``device``."""
+    return EdgeKeep(torch.rand(nnz, generator=generator, device=device)
+                    < 1.0 - dropout)
 
 
 def edge_dropout_vals(g: SparseGraph, dropout: float,

@@ -11,17 +11,21 @@
   * Training drops feature-matrix edges (probability ``dropout``), anneals
     alpha by ``delta`` each epoch, and scores an auxiliary BPR loss on the
     raw template embeddings with the learned vector ``w``.
-  * IGCN trains through one of two engines: the propagation cache
-    (``kernels/pcache.py``: P = mean_k A^k, built once; a step propagates
-    only its batch rows) or recompute (the full K-layer propagation every
-    step). Evaluation always runs the exact bit-packed propagation.
+  * Two graph backends (``choose_backend``). The dense one aggregates and
+    propagates through the bit-packed B; on it IGCN trains through one of
+    two engines: the propagation cache (``kernels/pcache.py``: P = mean_k
+    A^k, built once; a step propagates only its batch rows) or recompute
+    (the full K-layer propagation every step), and evaluation runs the
+    exact bit-packed propagation. The sparse one (catalogs whose B does
+    not fit the card's budget, or asked for by name) holds the feature
+    matrix and the sym-normalized adjacency as COO graphs
+    (``kernels/sparse.py``): layer 0 is ``spmm`` over the feature graph
+    with the annealed weights, its edge dropout an ``EdgeKeep`` over the
+    padded entries, and propagation ``propagate_mean``; it has no cache.
   * ``save``/``load`` keep the template maps and alpha, and ``rebuild_for``
     rebuilds the graph from the CURRENT dataset: users and items unseen at
     training time get representations over the old templates, with zero new
     parameters.
-
-Only the dense graph backend is ported for these models: the constructor
-refuses 'sparse' (``require_dense``).
 """
 
 from __future__ import annotations
@@ -30,16 +34,26 @@ import numpy as np
 import torch
 
 from igcn_cf_tpu_torch.core.registry import MODELS
-from igcn_cf_tpu_torch.graph.build import select_templates
+from igcn_cf_tpu_torch.graph.build import (
+    build_feat_mat,
+    select_templates,
+    sym_norm_adjacency,
+)
 from igcn_cf_tpu_torch.kernels.dense_graph import (
     BipartiteDense,
     FeatDrop,
     choose_backend,
-    require_dense,
     feat_aggregate,
     sym_norm_propagate_mean,
 )
 from igcn_cf_tpu_torch.kernels.pcache import cached_prop, use_pcache
+from igcn_cf_tpu_torch.kernels.sparse import (
+    SparseGraph,
+    draw_edge_keep,
+    edge_dropout_vals,
+    propagate_mean,
+    spmm,
+)
 from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 
@@ -62,10 +76,12 @@ class IGCN(Model):
             self.n_users, self.n_items, config.get("graph_backend", "auto"),
             self.device,
         )
-        require_dense(self.name, self.backend)
-        self.pcache = self.supports_pcache and use_pcache(
-            self.n_users, self.n_items, self.n_layers,
-            config.get("prop_cache", "auto"), self.device,
+        # P is built from the bit-packed B, which only the dense backend has
+        self.pcache = (
+            self.supports_pcache
+            and self.backend == "dense"
+            and use_pcache(self.n_users, self.n_items, self.n_layers,
+                           config.get("prop_cache", "auto"), self.device)
         )
         self.user_map, self.item_map = select_templates(
             dataset.train_array,
@@ -100,7 +116,33 @@ class IGCN(Model):
         }
 
     def init_buffers(self):
-        return self._init_buffers_dense()
+        if self.backend == "dense":
+            return self._init_buffers_dense()
+        return self._init_buffers_sparse()
+
+    def _init_buffers_sparse(self):
+        """The feature matrix and the sym-normalized adjacency as COO
+        graphs, with each feature entry's row sum and a live flag: the
+        padded tail entries get row sum 1.0 (so the anneal's pow stays
+        finite) and live 0 (so they add nothing at any alpha)."""
+        arr = self.dataset.train_array
+        dev = self.device
+        adj = sym_norm_adjacency(arr, self.n_users, self.n_items)
+        feat = build_feat_mat(arr, self.n_users, self.n_items, self.user_map,
+                              self.item_map)
+        feat_graph = SparseGraph.from_coo(feat.coo, device=dev)
+        edge_row_sum = np.ones(feat_graph.nnz, dtype=np.float32)
+        edge_row_sum[: feat.coo.nnz] = feat.row_sum[feat.coo.rows]
+        edge_live = np.zeros(feat_graph.nnz, dtype=np.float32)
+        edge_live[: feat.coo.nnz] = 1.0
+        self.feat_nnz = feat_graph.nnz  # the length of a step's EdgeKeep
+        return {
+            "norm_adj": SparseGraph.from_coo(adj, device=dev),
+            "feat_graph": feat_graph,
+            "feat_edge_row_sum": torch.as_tensor(edge_row_sum).to(dev),
+            "feat_edge_live": torch.as_tensor(edge_live).to(dev),
+            "alpha": torch.tensor(self.alpha, dtype=torch.float32, device=dev),
+        }
 
     def _init_buffers_dense(self, build_pcache: bool = True):
         """One bit-packed B serves the adjacency and the feature matrix;
@@ -140,11 +182,15 @@ class IGCN(Model):
     # -- representation -----------------------------------------------------
 
     def draw_drop(self, keys, generator):
-        """The step's feature-matrix dropout: two u32 mask seeds from the
-        host ``keys`` and the token-edge keeps from the device
-        ``generator``."""
+        """The step's feature-matrix dropout. Dense: two u32 mask seeds from
+        the host ``keys`` and the token-edge keeps from the device
+        ``generator``. Sparse: an ``EdgeKeep`` over the feature graph's
+        padded entries, from ``generator``."""
         if self.dropout <= 0.0:
             return None
+        if self.backend == "sparse":
+            return draw_edge_keep(self.feat_nnz, self.dropout, generator,
+                                  self.device)
         keep = 1.0 - self.dropout
         dev = self.device
         return FeatDrop(
@@ -153,9 +199,26 @@ class IGCN(Model):
             torch.rand(self.n_items, generator=generator, device=dev) < keep,
         )
 
+    def _feat_vals(self, buffers):
+        """The annealed edge weights row_sum^((alpha-1)/2 - 1/2) (reference
+        model.py:374-377) in f32, zero on the padding."""
+        exponent = (buffers["alpha"] - 1.0) / 2.0 - 0.5
+        return (torch.pow(buffers["feat_edge_row_sum"], exponent)
+                * buffers["feat_edge_live"])
+
+    def _inductive_rep(self, params, buffers, drop=None):
+        """Layer 0, on either backend, with the edge dropout of ``drop``
+        when given."""
+        if self.backend == "dense":
+            return self._inductive_rep_dense(params, buffers, drop)
+        g = buffers["feat_graph"].with_vals(self._feat_vals(buffers))
+        if drop is not None:
+            g = g.with_vals(edge_dropout_vals(g, self.dropout, keep=drop.keep))
+        return spmm(g, params["embedding"])
+
     def _inductive_rep_dense(self, params, buffers, drop=None):
-        """Layer 0: the INMO feature aggregation over template embeddings,
-        with the edge dropout of ``drop`` when given."""
+        """Layer 0 on the dense backend: the INMO feature aggregation over
+        template embeddings, with the edge dropout of ``drop`` when given."""
         emb = params["embedding"]
         n_cu = len(self.user_map)
         n_ci = len(self.item_map)
@@ -187,7 +250,9 @@ class IGCN(Model):
         )
 
     def _propagate(self, buffers, x0):
-        return sym_norm_propagate_mean(buffers["bip"], x0, self.n_layers)
+        if self.backend == "dense":
+            return sym_norm_propagate_mean(buffers["bip"], x0, self.n_layers)
+        return propagate_mean(buffers["norm_adj"], x0, self.n_layers)
 
     def rep(self, params, buffers, *, train=False, drop=None):
         """(n_users + n_items, d) representations. ``train`` keeps the
@@ -195,10 +260,10 @@ class IGCN(Model):
         gradients or dropout."""
         if train:
             return self._propagate(
-                buffers, self._inductive_rep_dense(params, buffers, drop))
+                buffers, self._inductive_rep(params, buffers, drop))
         with torch.no_grad():
             return self._propagate(buffers,
-                                   self._inductive_rep_dense(params, buffers))
+                                   self._inductive_rep(params, buffers))
 
     def bpr_pieces(self, params, buffers, users, pos, neg, *, train,
                    drop=None):
@@ -253,7 +318,6 @@ class IGCN(Model):
             self.n_users, self.n_items,
             self.config.get("graph_backend", "auto"), self.device,
         )
-        require_dense(self.name, self.backend)
         self.pcache = False
         return self.init_buffers()
 
@@ -279,6 +343,8 @@ class IGCN(Model):
         equal shapes and edge counts, so a different graph with the same
         counts gets its own P. Reuse avoids a second multi-GB P next to the
         live one."""
+        if self.backend != "dense":
+            return self.init_buffers()
         old_p = buffers.get("pcache")
         old_bip = buffers.get("bip")
         new = self._init_buffers_dense(build_pcache=False)

@@ -10,8 +10,9 @@ LightGCN has no dropout, so its propagation operator is fixed for a whole
 run: on the propagation-cache engine (``kernels/pcache.py``) a train step
 propagates only its 3 * batch rows, P[rows] @ E (K3 forward, K4 backward).
 The recompute engine and evaluation run the exact bit-packed propagation
-(K1/K2). Only the dense graph backend is ported for LightGCN: the
-constructor refuses 'sparse' (``require_dense``).
+(K1/K2). On the sparse graph backend (``choose_backend``) the adjacency is
+a COO graph and propagation ``kernels/sparse.propagate_mean``, with no
+cache.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from __future__ import annotations
 import torch
 
 from igcn_cf_tpu_torch.core.registry import MODELS
+from igcn_cf_tpu_torch.graph.build import sym_norm_adjacency
 from igcn_cf_tpu_torch.kernels.dense_graph import (
     BipartiteDense,
     choose_backend,
-    require_dense,
     sym_norm_propagate_mean,
 )
 from igcn_cf_tpu_torch.kernels.pcache import cached_prop, use_pcache
+from igcn_cf_tpu_torch.kernels.sparse import SparseGraph, propagate_mean
 from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
 
 
@@ -41,8 +43,8 @@ class LightGCN(Model):
             self.n_users, self.n_items, config.get("graph_backend", "auto"),
             self.device,
         )
-        require_dense(self.name, self.backend)
-        self.pcache = use_pcache(
+        # P is built from the bit-packed B, which only the dense backend has
+        self.pcache = self.backend == "dense" and use_pcache(
             self.n_users, self.n_items, self.n_layers,
             config.get("prop_cache", "auto"), self.device,
         )
@@ -57,6 +59,10 @@ class LightGCN(Model):
         }
 
     def init_buffers(self):
+        if self.backend == "sparse":
+            coo = sym_norm_adjacency(self.dataset.train_array, self.n_users,
+                                     self.n_items)
+            return {"norm_adj": SparseGraph.from_coo(coo, device=self.device)}
         bip = BipartiteDense.build(self.dataset.train_array, self.n_users,
                                    self.n_items, self.device)
         buffers = {"bip": bip}
@@ -68,6 +74,9 @@ class LightGCN(Model):
         """(n_users + n_items, d) representations; evaluation runs without
         gradients."""
         with torch.set_grad_enabled(train):
+            if self.backend == "sparse":
+                return propagate_mean(buffers["norm_adj"], params["embedding"],
+                                      self.n_layers)
             return sym_norm_propagate_mean(buffers["bip"], params["embedding"],
                                            self.n_layers)
 
@@ -98,7 +107,6 @@ class LightGCN(Model):
             new_dataset.n_users, new_dataset.n_items,
             self.config.get("graph_backend", "auto"), self.device,
         )
-        require_dense(self.name, self.backend)
         self.pcache = False
         return super().rebuild_for(new_dataset)
 

@@ -9,24 +9,34 @@ normalization, and the CONCAT of every layer's output with layer 0, so the
 representation is (n, d + sum(layer_sizes)). Training drops edges of the
 adjacency and its self-loops once per forward, the same drop in every
 layer, inside kernels K6m/K7m (``ngcf_propagate``); BPR's L2 is taken on
-the concatenated propagated reps. Only the dense graph backend is ported
-for NGCF: the constructor refuses 'sparse' (``require_dense``).
+the concatenated propagated reps. On the sparse graph backend
+(``choose_backend``) the adjacency is the COO graph of
+``l1_norm_adjacency_with_self_loops``, each layer's message ``spmm``, and
+the step's edge drop one ``EdgeKeep`` over its padded entries, shared by
+every layer (``edge_dropout_vals``).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from igcn_cf_tpu_torch.core.registry import MODELS
+from igcn_cf_tpu_torch.graph.build import l1_norm_adjacency_with_self_loops
 from igcn_cf_tpu_torch.kernels.dense_graph import (
     BipartiteDense,
     FeatDrop,
     choose_backend,
-    require_dense,
     ngcf_propagate,
+)
+from igcn_cf_tpu_torch.kernels.sparse import (
+    EdgeKeep,
+    SparseGraph,
+    draw_edge_keep,
+    edge_dropout_vals,
+    spmm,
 )
 from igcn_cf_tpu_torch.models.base import (
     Model,
@@ -40,9 +50,11 @@ from igcn_cf_tpu_torch.models.base import (
 class NGCFDrop(NamedTuple):
     """One train step's dropout draw: ``edge``, the adjacency's edge and
     self-loop drop that every layer reuses (the JAX package reuses one
-    ``k_edge``), and ``feat``, one (n, layer_size) bool keep per layer."""
+    ``k_edge``): mask seeds and self-loop keeps on the dense backend, an
+    ``EdgeKeep`` on the sparse one; and ``feat``, one (n, layer_size) bool
+    keep per layer."""
 
-    edge: FeatDrop
+    edge: Union[FeatDrop, EdgeKeep]
     feat: List[torch.Tensor]
 
 
@@ -60,7 +72,6 @@ class NGCF(Model):
             self.n_users, self.n_items, config.get("graph_backend", "auto"),
             self.device,
         )
-        require_dense(self.name, self.backend)
 
     def init_params(self, generator=None):
         n = self.n_users + self.n_items
@@ -76,35 +87,60 @@ class NGCF(Model):
         return params
 
     def init_buffers(self):
-        return {"bip": BipartiteDense.build(self.dataset.train_array,
-                                            self.n_users, self.n_items,
+        arr = self.dataset.train_array
+        if self.backend == "sparse":
+            g = SparseGraph.from_coo(
+                l1_norm_adjacency_with_self_loops(arr, self.n_users,
+                                                  self.n_items),
+                device=self.device)
+            self.edge_nnz = g.nnz  # the length of a step's EdgeKeep
+            return {"norm_adj": g}
+        return {"bip": BipartiteDense.build(arr, self.n_users, self.n_items,
                                             self.device)}
 
     def draw_drop(self, keys, generator):
-        """The step's draw: two u32 edge-mask seeds from the host ``keys``,
-        the self-loop and feature keeps from the device ``generator``."""
+        """The step's draw. Dense: two u32 edge-mask seeds from the host
+        ``keys``, the self-loop keeps from the device ``generator``; sparse:
+        an ``EdgeKeep`` from ``generator``. Then the feature keeps from
+        ``generator``."""
         if self.dropout <= 0.0:
             return None
         keep = 1.0 - self.dropout
         dev = self.device
         n = self.n_users + self.n_items
-        edge = FeatDrop(
-            keys.next_seed(), keys.next_seed(),
-            torch.rand(self.n_users, generator=generator, device=dev) < keep,
-            torch.rand(self.n_items, generator=generator, device=dev) < keep,
-        )
+        if self.backend == "sparse":
+            edge = draw_edge_keep(self.edge_nnz, self.dropout, generator, dev)
+        else:
+            edge = FeatDrop(
+                keys.next_seed(), keys.next_seed(),
+                torch.rand(self.n_users, generator=generator, device=dev) < keep,
+                torch.rand(self.n_items, generator=generator, device=dev) < keep,
+            )
         feat = [torch.rand((n, size), generator=generator, device=dev) < keep
                 for size in self.layer_sizes]
         return NGCFDrop(edge, feat)
 
-    def _rep(self, params, buffers, drop):
+    def _message(self, buffers, drop):
+        """The layers' message function m0(x): (A + I) x / (deg + 1) under
+        the step's one edge drop."""
+        if self.backend == "sparse":
+            g = buffers["norm_adj"]
+            if drop is not None:
+                g = g.with_vals(edge_dropout_vals(g, self.dropout,
+                                                  keep=drop.edge.keep))
+            return lambda x: spmm(g, x)
         bip = buffers["bip"]
+        edge = None if drop is None else drop.edge
+        return lambda x: ngcf_propagate(bip, x, dropout=self.dropout,
+                                        drop=edge)
+
+    def _rep(self, params, buffers, drop):
+        message = self._message(buffers, drop)
         x = params["embedding"]
         outs = [x]
         for i in range(self.n_layers):
-            m0 = ngcf_propagate(bip, x, dropout=self.dropout,
-                                drop=None if drop is None else drop.edge)
-            h =(linear_apply(params["gc_layers"][i], m0)
+            m0 = message(x)
+            h = (linear_apply(params["gc_layers"][i], m0)
                  + linear_apply(params["bi_layers"][i], x * m0))
             h = F.leaky_relu(h, negative_slope=0.2)
             if drop is not None:

@@ -1,11 +1,21 @@
-"""Kernel microbenchmarks of the port, run on the card (ports of the JAX
-package's ``tools/microbench_dual.py``, ``tools/microbench_pcache.py``,
+"""The port's tools, run on the card. Kernel microbenchmarks (ports of the
+JAX package's ``tools/microbench_dual.py``, ``tools/microbench_pcache.py``,
 ``tools/microbench_pcache_tune.py`` and ``tools/microbench_gather.py``):
 
     python -m igcn_cf_tpu_torch.tools.microbench_dual [d]
     python -m igcn_cf_tpu_torch.tools.microbench_pcache
     python -m igcn_cf_tpu_torch.tools.microbench_pcache_tune
     python -m igcn_cf_tpu_torch.tools.microbench_gather
+
+and the convergence and scale runs (ports of ``tools/parity_run.py``,
+``tools/soak_gowalla.py``, ``tools/amazon_scale_check.py`` and
+``tools/amazon_serve_check.py``), which write ``PARITY_RESULTS_TORCH.json``
+and ``AMAZON_SCALE_TORCH.json`` at the root of the checkout:
+
+    python -m igcn_cf_tpu_torch.tools.parity_run [--epochs N]
+    python -m igcn_cf_tpu_torch.tools.soak_gowalla
+    python -m igcn_cf_tpu_torch.tools.amazon_scale_check
+    python -m igcn_cf_tpu_torch.tools.amazon_serve_check
 
 Times are CUDA-event medians (``utils/timing.cuda_ms``), or for calls of a
 few microseconds the mean over calls queued back to back
@@ -17,7 +27,9 @@ clock (``sm_clock``).
 
 from __future__ import annotations
 
+import json
 import subprocess
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -32,6 +44,12 @@ DATASHEETS = (
     ("H100 PCIe", (2.0e12, 756e12, 51e12)),
     ("H100", (3.35e12, 989e12, 67e12)),  # SXM5, "NVIDIA H100 80GB HBM3"
 )
+
+
+# the checkout's root: the runs' results and dataset caches live there
+ROOT = Path(__file__).resolve().parents[2]
+# synthetic catalogs the runs generate once (gitignored)
+DATASET_CACHE = ROOT / ".datasets"
 
 
 class Peaks(NamedTuple):
@@ -98,3 +116,23 @@ def sm_clock() -> tuple[int, float]:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.split()[0]
     return sms, float(mhz)
+
+
+def device_line(device) -> str:
+    """What a result record says of the device it ran on: nvidia-smi's
+    name and power limit of the card, or "cpu". Raises for CUDA where no
+    card is visible."""
+    from igcn_cf_tpu_torch.kernels import _build
+
+    device = _build.require_device(device)
+    return card().smi if device.type == "cuda" else "cpu"
+
+
+def update_json(path, key: str, record) -> dict:
+    """Set ``key`` of the JSON object in ``path`` (created if absent) to
+    ``record``, written whole; returns the object."""
+    path = Path(path)
+    results = json.loads(path.read_text()) if path.exists() else {}
+    results[key] = record
+    path.write_text(json.dumps(results, indent=2) + "\n")
+    return results

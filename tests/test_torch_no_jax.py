@@ -70,7 +70,13 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     "igcn_cf_tpu_torch.tools.microbench_dual",
                                     "igcn_cf_tpu_torch.tools.microbench_pcache",
                                     "igcn_cf_tpu_torch.tools.microbench_pcache_tune",
-                                    "igcn_cf_tpu_torch.tools.microbench_gather"])
+                                    "igcn_cf_tpu_torch.tools.microbench_gather",
+                                    "igcn_cf_tpu_torch.models.inmo",
+                                    "igcn_cf_tpu_torch.graph.build",
+                                    "igcn_cf_tpu_torch.tools.parity_run",
+                                    "igcn_cf_tpu_torch.tools.soak_gowalla",
+                                    "igcn_cf_tpu_torch.tools.amazon_scale_check",
+                                    "igcn_cf_tpu_torch.tools.amazon_serve_check"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -207,7 +207,7 @@ def test_recommend_refuses_bad_requests(port_tiny):
 def test_training_paths_are_not_ported(port_tiny):
     """Training is ported now (tests/test_torch_train.py): the train rep
     carries gradients and the propagation cache builds. The sparse backend
-    is still not ported, and serving never builds the cache."""
+    is ported too, and builds no cache (P comes from the packed B)."""
     pm = get_model(dict(MODEL_CFG), port_tiny, device="cpu")
     pp, pb = pm.init_params(), pm.init_buffers()
     pp["embedding"].requires_grad_()
@@ -215,5 +215,9 @@ def test_training_paths_are_not_ported(port_tiny):
     assert not pm.rep(pp, pb, train=False).requires_grad
     cached = get_model(dict(MODEL_CFG, prop_cache=True), port_tiny, device="cpu")
     assert cached.pcache and "pcache" in cached.init_buffers()
-    with pytest.raises(NotImplementedError, match="sparse"):
-        get_model(dict(MODEL_CFG, graph_backend="sparse"), port_tiny, device="cpu")
+    sparse = get_model(dict(MODEL_CFG, graph_backend="sparse", prop_cache=True),
+                       port_tiny, device="cpu")
+    assert sparse.backend == "sparse" and not sparse.pcache
+    buffers = sparse.init_buffers()
+    assert "pcache" not in buffers and "bip" not in buffers
+    assert not sparse.rep(pp, buffers, train=False).requires_grad

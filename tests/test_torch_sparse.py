@@ -126,14 +126,18 @@ def test_choose_backend_routes_to_sparse(port_tiny_ds):
     assert dense_graph.choose_backend(60, 80, device="cpu") == "dense"
     with pytest.raises(ValueError):
         dense_graph.choose_backend(60, 80, "coo", device="cpu")
-    # the models without a sparse branch yet refuse it in their constructor
+    # IGCN, LightGCN and NGCF construct on 'sparse': COO graphs, no B
     for cfg in ({"name": "IGCN", "embedding_size": 8, "n_layers": 2,
                  "feature_ratio": 1.0},
                 {"name": "LightGCN", "embedding_size": 8, "n_layers": 2},
                 {"name": "NGCF", "embedding_size": 8, "layer_sizes": [8],
                  "dropout": 0.1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(dict(cfg, graph_backend="sparse"), port_tiny_ds, "cpu")
+        model = get_model(dict(cfg, graph_backend="sparse"), port_tiny_ds,
+                          "cpu")
+        assert model.backend == "sparse"
+        buffers = model.init_buffers()
+        assert "bip" not in buffers
+        assert isinstance(buffers["norm_adj"], sparse.SparseGraph)
 
 
 @pytest.fixture(scope="module")
