@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's IGCN serving and training paths, LightGCN and
 NGCF training, the command line's flows (run, dropit, dropui), the four
-kernel-microbenchmark tools, the other five model families, and the sparse
-graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run, once
-on one NVIDIA H100.
+kernel-microbenchmark tools, the other five model families, the sparse
+graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run, and
+tuning (``tune``, population against sequential search) with a point of
+the template-ratio sweep, once on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -144,7 +145,24 @@ Phases, each fatal on failure:
      the same keep masks; K5 at each family's eval shape identical to its
      plain version. Then, counted again, ``tools/parity_run`` cut to two
      epochs into a scratch path: all four models train and evaluate.
-  12. output -- a JSON line of the kernels (each with its launches, error,
+  12. tuning and analysis -- at the Gowalla presets over .smoke/text/1/,
+     full width, one epoch, each part with the counts set to 0 just before
+     and read just after: (a) ``main(["tune", "--config", "2", ...])``
+     in-process with .smoke/tune/ emptied as the working directory, the
+     IGCN grid's 18 points in 3 dropout groups of 6 by the population
+     search: the JAX package's lines, 18 ``NDCG:`` lines in
+     ``parameter_grid`` order, each finite and above 0, 3 P builds, K1-K7
+     and K8p launched; logged with its wall seconds, seconds a group and
+     milliseconds a trial-step. (b) IGCN (dropout 0.3, the cache engine
+     pinned) over a 4-point grid of lr, l2_reg and aux_reg at one epoch:
+     ``population_grid_search`` against ``grid_search``, each trial's epoch
+     loss and best val NDCG identical, with the milliseconds a trial-step
+     of one against a step of the other. (c) one point of
+     ``template_ratio_sweep`` (feature_ratio 0.5, degree ranking): test
+     NDCG@20 finite and above 0, K1/K2, K8p and K5 launched; then one step
+     of its trainer at feature_ratio 0.5 through the kernels against the
+     plain versions, as phase 6's.
+  13. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -275,6 +293,14 @@ QUARTER = dict(n_users=N_USERS // 4, n_items=N_ITEMS // 4, avg_degree=9,
                seed=77, name="parity_q")
 # launched by the microbenchmark tools and nowhere else
 TOOL_ONLY = ("K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
+# phase 12: the IGCN grid's population search through ``tune`` (its
+# dropout-0.0 group alone launches no K8p)
+TUNE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8p")
+# the template sweep's point at feature_ratio 0.5
+SWEEP_KERNELS = ("K1", "K2", "K8p", "K5")
+# phase 12 (b): the population against the sequential search, one group,
+# the cache engine pinned
+POP_GRID = {"lr": [1e-3], "l2_reg": [0.0, 1e-5], "aux_reg": [1e-2, 1e-1]}
 
 
 def log(msg: str) -> None:
@@ -2368,6 +2394,258 @@ def phase_sparse(full, smi):
     return launches
 
 
+# -- phase 12: tuning and analysis ----------------------------------------------
+
+
+class _GroupStats:
+    """Wraps ``population.PopulationTrainer`` to record each group's wall
+    seconds (from its construction, P build included, to the end of its
+    ``train``), its epochs and its best NDCGs, without keeping the trainer
+    (and its P) alive."""
+
+    def __init__(self):
+        from igcn_cf_tpu_torch.tuning import population
+
+        self.groups = []
+        stats = self
+
+        class Timed(population.PopulationTrainer):
+            def __init__(self, *args, **kwargs):
+                sync()
+                self._t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+
+            def train(self, verbose=True):
+                best = super().train(verbose)
+                sync()
+                stats.groups.append({
+                    "wall_s": time.perf_counter() - self._t0,
+                    "n_trials": self.n_trials, "history": self.history,
+                    "best": best})
+                return best
+
+        self.cls = Timed
+
+    def trial_step_ms(self) -> float:
+        """Training milliseconds per trial-step over every group's epochs."""
+        train_s = sum(h["train_s"] for g in self.groups for h in g["history"])
+        steps = sum(h["trial_steps"] for g in self.groups for h in g["history"])
+        return train_s / steps * 1e3
+
+
+def _ndcg_lines(out):
+    """(NDCG, parameters text) of each ``NDCG: x, Parameters: {...}`` line."""
+    return [(float(m.group(1)), m.group(2)) for m in re.finditer(
+        r"^NDCG: ([^,]+), Parameters: (\{.*\})$", out, re.M)]
+
+
+def tune_cli(text, smi):
+    """(a) ``tune`` on the IGCN preset's grid through the command line, one
+    epoch, with .smoke/tune/ as the working directory: 18 points in 3
+    dropout groups of 6, by the population search. Returns the launches."""
+    import shutil
+
+    from igcn_cf_tpu_torch.cli import main as cli
+    from igcn_cf_tpu_torch.kernels import _build, pcache
+    from igcn_cf_tpu_torch.tuning import grid, population
+
+    work = CACHE_DIR / "tune"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stats = _GroupStats()
+    argv = ["tune", "--dataset", "gowalla", "--config", str(PRESETS["IGCN"]),
+            "--data-path", str(text), "--n-epochs", "1"]
+    tee = _Tee(sys.stdout)
+    old_cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with mock.patch.object(pcache, "build_prop_cache",
+                               wraps=pcache.build_prop_cache) as builds, \
+                mock.patch.object(population, "PopulationTrainer", stats.cls), \
+                contextlib.redirect_stdout(tee):
+            sync()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+    finally:
+        os.chdir(old_cwd)
+    gc.collect()
+    out = tee.text()
+    points = list(grid.parameter_grid(grid.GRIDS["IGCN"]))
+    lines = _ndcg_lines(out)
+    if [p for _, p in lines] != [str(p) for p in points]:
+        raise AssertionError(f"tune printed {len(lines)} NDCG lines, not the "
+                             f"{len(points)} points in parameter_grid order")
+    if not all(np.isfinite(v) and v > 0 for v, _ in lines):
+        raise AssertionError(f"tune: an NDCG not finite and above 0: {lines}")
+    groups = re.findall(r"^Group \{'dropout': [\d.]+\}: 6 trials in one program$",
+                        out, re.M)
+    epochs = re.findall(r"^Epoch 0/1, losses: \[[^\]]+\], 6/6 trials alive$", out,
+                        re.M)
+    if len(groups) != 3 or len(epochs) != 3 or len(stats.groups) != 3:
+        raise AssertionError(f"tune: {len(groups)} group lines, {len(epochs)} "
+                             f"epoch lines, {len(stats.groups)} groups trained")
+    if not re.search(r"^Maximum NDCG: [\d.]+, Best Parameters: \{", out, re.M):
+        raise AssertionError("tune: no 'Maximum NDCG' line")
+    best = np.concatenate([g["best"] for g in stats.groups])
+    losses = np.concatenate([g["history"][0]["losses"] for g in stats.groups])
+    if not (np.isfinite(best).all() and (best > 0).all()
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"tune: best NDCGs {best}, losses {losses}")
+    if builds.call_count != 3:
+        raise AssertionError(f"tune: {builds.call_count} P builds for 3 groups")
+    check_launches(launches, TUNE_KERNELS, "CLI tune")
+    log(f"# CLI tune (IGCN grid, 18 points, 3 groups of 6, 1 epoch): {wall:.3f} "
+        f"s wall ({smi}); groups "
+        + ", ".join(f"{g['wall_s']:.3f}" for g in stats.groups)
+        + f" s; {stats.trial_step_ms():.4f} ms a trial-step; P builds "
+        f"{builds.call_count}; best val NDCG@{K} {best.min():.6f}-{best.max():.6f}; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def check_population_equals_sequential(text, smi):
+    """(b) IGCN, dropout 0.3, the cache engine pinned, ``POP_GRID`` at one
+    epoch: ``population_grid_search`` against ``grid_search``, each trial's
+    epoch loss and best val NDCG identical. Returns the launches of both
+    searches."""
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.tuning import grid, population
+
+    model_cfg, trainer_cfg = gowalla_preset("IGCN")
+    model_cfg = dict(model_cfg, dropout=0.3, prop_cache=True)
+    dc = {"name": "ProcessedDataset", "path": str(text)}
+    stats = _GroupStats()
+    seq_epochs = []  # each sequential trial's history and steps an epoch
+    get_trainer = grid.get_trainer
+
+    def recording(tc, dataset, model):
+        trainer = get_trainer(tc, dataset, model)
+        seq_epochs.append((trainer.history, trainer.steps_per_epoch()))
+        return trainer
+
+    old_cwd = os.getcwd()
+    os.chdir(CACHE_DIR / "tune")
+    try:
+        with mock.patch.object(population, "PopulationTrainer", stats.cls):
+            _build.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            pop = population.population_grid_search(
+                dc, model_cfg, trainer_cfg, POP_GRID, verbose=False,
+                device=DEVICE)
+            sync()
+            pop_s = time.perf_counter() - t0
+        with mock.patch.object(grid, "get_trainer", recording):
+            sync()
+            t0 = time.perf_counter()
+            seq = grid.grid_search(dc, model_cfg, trainer_cfg, POP_GRID,
+                                   verbose=False, device=DEVICE)
+            sync()
+            seq_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        os.chdir(old_cwd)
+    gc.collect()
+    pop_losses = [float(x) for x in stats.groups[0]["history"][0]["losses"]]
+    seq_losses = [history[0]["loss"] for history, _ in seq_epochs]
+    pop_ndcg = [t["ndcg"] for t in pop["trials"]]
+    seq_ndcg = [t["ndcg"] for t in seq["trials"]]
+    if pop_losses != seq_losses or pop_ndcg != seq_ndcg or pop != seq:
+        raise AssertionError(f"population vs sequential: losses {pop_losses} vs "
+                             f"{seq_losses}, NDCG {pop_ndcg} vs {seq_ndcg}")
+    steps = seq_epochs[0][1]
+    seq_ms = (sum(h[0]["train_s"] for h, _ in seq_epochs)
+              / (steps * len(seq_epochs)) * 1e3)
+    log(f"# population vs sequential (IGCN, dropout 0.3, cache engine, "
+        f"{len(pop_ndcg)} trials {POP_GRID}, 1 epoch of {steps} steps): epoch "
+        f"losses {pop_losses} and val NDCG@{K} {pop_ndcg} identical; population "
+        f"{pop_s:.3f} s wall, {stats.trial_step_ms():.4f} ms a trial-step; "
+        f"sequential {seq_s:.3f} s wall, {seq_ms:.4f} ms a step ({smi})")
+    return launches
+
+
+def check_template_sweep(text, smi):
+    """(c) one point of the template-ratio sweep (feature_ratio 0.5, degree
+    ranking) at the IGCN preset cut to one epoch: test NDCG@20 finite and
+    above 0, K1/K2, K8p and K5 launched; then one step of that trainer at
+    feature_ratio 0.5 through the kernels against the plain versions.
+    Returns the sweep's launches."""
+    import torch
+
+    from igcn_cf_tpu_torch.analysis import plots
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.train import trainer as trainer_mod
+
+    model_cfg, trainer_cfg = gowalla_preset("IGCN")
+    dc = {"name": "ProcessedDataset", "path": str(text)}
+    trainers = []
+    get_trainer = trainer_mod.get_trainer
+
+    def recording(*args):
+        trainers.append(get_trainer(*args))
+        return trainers[-1]
+
+    old_cwd = os.getcwd()
+    os.chdir(CACHE_DIR / "tune")
+    try:
+        with mock.patch.object(trainer_mod, "get_trainer", recording):
+            _build.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            sweep = plots.template_ratio_sweep(
+                dc, model_cfg, trainer_cfg, ratios=(0.5,),
+                ranking_metrics=("degree",), device=DEVICE)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+    finally:
+        os.chdir(old_cwd)
+    ndcg = sweep["degree"][0]
+    if not (np.isfinite(ndcg) and ndcg > 0):
+        raise AssertionError(f"template sweep: test NDCG@{K} {ndcg}%")
+    check_launches(launches, SWEEP_KERNELS, "template sweep")
+    (trainer,) = trainers
+    model = trainer.model
+    if model._identity_templates() or len(model.user_map) != int(
+            0.5 * model.n_users):
+        raise AssertionError("the sweep's point did not train on half templates")
+    log(f"# template sweep feature_ratio 0.5 (degree): test NDCG@{K} "
+        f"{ndcg:.6f}% in {wall:.3f} s wall ({smi}); {len(model.user_map)} + "
+        f"{len(model.item_map)} templates, engine "
+        f"{'cache' if model.pcache else 'recompute'}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check_step(trainer, "feature_ratio 0.5 " + ("cache" if model.pcache
+                                                else "recompute") + " engine")
+    del trainers, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tune(full, smi):
+    """Tuning and analysis at the Gowalla presets over .smoke/text/1/, full
+    width, one epoch: (a) ``tune`` through the command line, (b) the
+    population against the sequential search, (c) one point of the
+    template-ratio sweep and a step at feature_ratio 0.5. Returns the
+    launches of (a) to (c), each driven with the counts set to 0 just
+    before and read just after."""
+    import torch
+
+    text = write_text_dataset(full)
+    runs = [tune_cli(text, smi)]
+    torch.cuda.empty_cache()
+    runs.append(check_population_equals_sequential(text, smi))
+    torch.cuda.empty_cache()
+    runs.append(check_template_sweep(text, smi))
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    log(f"# launches during tuning and analysis: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2417,7 +2695,13 @@ def main() -> int:
     if stray:
         raise AssertionError(f"the tools' kernels launched on the sparse "
                              f"branches: {stray}")
-    runs = earlier + [tool_launches, zoo_launches, sparse_launches]
+    torch.cuda.empty_cache()
+    tune_launches = phase_tune(full, smi)
+    stray = {k: tune_launches[k] for k in TOOL_ONLY if tune_launches[k]}
+    if stray:
+        raise AssertionError(f"the tools' kernels launched in tuning: {stray}")
+    runs = earlier + [tool_launches, zoo_launches, sparse_launches,
+                      tune_launches]
     log(f"# mask launches over the run: K8 (one seed) "
         f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
         f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "

@@ -6,12 +6,14 @@ device). Every flow is a subcommand:
     python -m igcn_cf_tpu_torch.cli.main dropui   --dataset gowalla --config 2 --split 0
     python -m igcn_cf_tpu_torch.cli.main process  --dataset Amazon --root data
     python -m igcn_cf_tpu_torch.cli.main derive   --kind dropit --path data/Gowalla/0
+    python -m igcn_cf_tpu_torch.cli.main tune     --dataset gowalla --config 2
 
 ``--config N`` selects the model triple by index as the reference does
-(``config[2]`` = IGCN, reference run/run.py:16). ``run``, ``dropit`` and
-``dropui`` run on the card unless ``--device cpu`` is given; where no card
-is visible they raise. Every preset's model is ported. Not ported:
-``tune`` and ``--mesh``.
+(``config[2]`` = IGCN, reference run/run.py:16). ``run``, ``dropit``,
+``dropui`` and ``tune`` run on the card unless ``--device cpu`` is given;
+where no card is visible they raise. Every preset's model is ported.
+``tune`` takes ``--seed`` and ``--n-epochs``, which the JAX package's
+drops. Not ported: ``--mesh`` and ``tune --trial-mesh``.
 """
 
 from __future__ import annotations
@@ -149,6 +151,23 @@ def cmd_derive(args):
     derive(ds, args.ratio).output(args.path + "_" + args.kind)
 
 
+def cmd_tune(args):
+    """The preset's reference grid (``tuning/grid.py``): the population
+    search, the sequential one, or 'auto' (population where a group of
+    grid points shares a model)."""
+    from igcn_cf_tpu_torch.tuning.grid import tune_preset
+
+    device = _start(args)
+    population = "auto"
+    if args.population:
+        population = True
+    elif args.sequential:
+        population = False
+    tune_preset(args.dataset, args.config, data_path=args.data_path,
+                seed=args.seed, population=population, device=device,
+                n_epochs=args.n_epochs)
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="igcn_cf_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -199,6 +218,14 @@ def build_parser():
     sp.add_argument("--path", required=True)
     sp.add_argument("--ratio", type=float, default=0.8)
     sp.set_defaults(fn=cmd_derive)
+
+    sp = sub.add_parser("tune", help="hyperparameter grid search")
+    common(sp)
+    sp.add_argument("--population", action="store_true",
+                    help="force the population search")
+    sp.add_argument("--sequential", action="store_true",
+                    help="force the reference-style sequential search")
+    sp.set_defaults(fn=cmd_tune)
     return p
 
 

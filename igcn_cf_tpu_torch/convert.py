@@ -139,3 +139,23 @@ def adam_state_from_jax(opt_state, params, optimizer: torch.optim.Optimizer) -> 
             "exp_avg": torch.tensor(np.asarray(mu[name]), device=p.device),
             "exp_avg_sq": torch.tensor(np.asarray(nu[name]), device=p.device),
         }
+
+
+def split_population(params, opt_state, n_trials: int) -> list:
+    """The JAX package's ``PopulationTrainer`` state, whose leaves carry the
+    trial on their leading axis: its stacked parameter tree and its vmapped
+    ``scale_by_adam`` state (count (T,), mu and nu stacked) -> one
+    ``(parameter tree of numpy arrays, {"count", "mu", "nu"})`` pair a
+    trial, for ``params_from_jax`` and ``adam_state_from_jax``."""
+    found = _find_adam_state(opt_state)
+    if found is None:
+        raise ValueError("no Adam (count, mu, nu) state found")
+    count, mu, nu = found
+    count = np.asarray(count).reshape(-1)
+
+    def take(tree, t):
+        return map_tree(lambda v: np.array(np.asarray(v)[t]), tree)
+
+    return [(take(params, t), {"count": np.int32(count[t if count.size > 1 else 0]),
+                               "mu": take(mu, t), "nu": take(nu, t)})
+            for t in range(n_trials)]

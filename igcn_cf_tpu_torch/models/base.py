@@ -70,6 +70,20 @@ def linear_apply(layer: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ layer["w"] + layer["b"]
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` (rows of ``x`` at the ids of ``idx``, any shape) whose
+    gradient repeats bit for bit on either device. A batch takes one row
+    many times, and the backward sums those cotangents into it: on the CPU
+    ``x[idx]``'s accumulating ``index_put_`` adds them in thread order,
+    while ``index_select``'s ``index_add_`` adds them in index order; on
+    CUDA ``index_add_`` adds with atomics, while the accumulating
+    ``index_put_`` sorts the ids first."""
+    if x.is_cuda:
+        return x[idx]
+    rows = x.index_select(0, idx.reshape(-1))
+    return rows.reshape(*idx.shape, *x.shape[1:])
+
+
 def l2sq(x: torch.Tensor, dim=None) -> torch.Tensor:
     return torch.sum(x * x) if dim is None else torch.sum(x * x, dim=dim)
 

@@ -47,7 +47,13 @@ from igcn_cf_tpu_torch.graph.build import (
     sym_norm_adjacency,
 )
 from igcn_cf_tpu_torch.kernels.sparse import SparseGraph, propagate_mean, spmm
-from igcn_cf_tpu_torch.models.base import Model, l2sq, linear_apply, linear_init
+from igcn_cf_tpu_torch.models.base import (
+    Model,
+    l2sq,
+    linear_apply,
+    linear_init,
+    take_rows,
+)
 
 EVAL_SEED = 0  # the evaluation's key samples
 
@@ -224,8 +230,10 @@ class IDCF_LGCN(Model):
         rep, contrastive = self._rep_and_contrastive(params, buffers, drop,
                                                      True)
         n = self.n_users
-        c = contrastive[users] + contrastive[n + pos] + contrastive[n + neg]
-        u, p, ng = rep[users], rep[n + pos], rep[n + neg]
+        c = (take_rows(contrastive, users) + take_rows(contrastive, n + pos)
+             + take_rows(contrastive, n + neg))
+        u, p, ng = (take_rows(rep, users), take_rows(rep, n + pos),
+                    take_rows(rep, n + neg))
         l2 = l2sq(u, dim=1) + l2sq(p, dim=1) + l2sq(ng, dim=1)
         for head in params["heads"]:
             l2 = l2 + l2sq(head["wq"]["w"]) + l2sq(head["wk"]["w"])

@@ -31,7 +31,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import (
     sym_norm_propagate,
 )
 from igcn_cf_tpu_torch.kernels.sparse import SparseGraph, spmm
-from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
+from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init, take_rows
 
 
 class IMCGAEDrop(NamedTuple):
@@ -109,9 +109,9 @@ class IMCGAE(Model):
     def bpr_pieces(self, params, buffers, users, pos, neg, *, train,
                    drop=None):
         rep = self.rep(params, buffers, train=train, drop=drop)
-        u = rep[users]
-        p = rep[self.n_users + pos]
-        n = rep[self.n_users + neg]
+        u = take_rows(rep, users)
+        p = take_rows(rep, self.n_users + pos)
+        n = take_rows(rep, self.n_users + neg)
         l2 = l2sq(u, dim=1) + l2sq(p, dim=1) + l2sq(n, dim=1)
         return u, p, n, l2
 

@@ -54,7 +54,7 @@ from igcn_cf_tpu_torch.kernels.sparse import (
     propagate_mean,
     spmm,
 )
-from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
+from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init, take_rows
 
 
 @MODELS.register("IGCN")
@@ -278,9 +278,9 @@ class IGCN(Model):
             u, p, n = reps[:b], reps[b : 2 * b], reps[2 * b :]
         else:
             rep = self.rep(params, buffers, train=train, drop=drop)
-            u = rep[users]
-            p = rep[self.n_users + pos]
-            n = rep[self.n_users + neg]
+            u = take_rows(rep, users)
+            p = take_rows(rep, self.n_users + pos)
+            n = take_rows(rep, self.n_users + neg)
         # L2 on propagated reps, as IGCN borrows NGCF.bpr_forward
         # (reference model.py:448-449 -> 293-299)
         l2 = l2sq(u, dim=1) + l2sq(p, dim=1) + l2sq(n, dim=1)
@@ -292,10 +292,10 @@ class IGCN(Model):
         users/pos/neg are template-space ids."""
         emb = params["embedding"]
         n_core_users = len(self.user_map)
-        u = emb[users]
+        u = take_rows(emb, users)
         w = params["w"][None, :]
-        return (torch.sum(u * emb[pos + n_core_users] * w, dim=1),
-                torch.sum(u * emb[neg + n_core_users] * w, dim=1))
+        return (torch.sum(u * take_rows(emb, pos + n_core_users) * w, dim=1),
+                torch.sum(u * take_rows(emb, neg + n_core_users) * w, dim=1))
 
     def epoch_update(self, buffers):
         """The per-epoch anneal alpha <- alpha * delta (reference

@@ -28,7 +28,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import (
 )
 from igcn_cf_tpu_torch.kernels.pcache import cached_prop, use_pcache
 from igcn_cf_tpu_torch.kernels.sparse import SparseGraph, propagate_mean
-from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
+from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init, take_rows
 
 
 @MODELS.register("LightGCN")
@@ -90,13 +90,14 @@ class LightGCN(Model):
             u, p, n = reps[:b], reps[b : 2 * b], reps[2 * b :]
         else:
             rep = self.rep(params, buffers, train=train)
-            u = rep[users]
-            p = rep[self.n_users + pos]
-            n = rep[self.n_users + neg]
+            u = take_rows(rep, users)
+            p = take_rows(rep, self.n_users + pos)
+            n = take_rows(rep, self.n_users + neg)
         # L2 on the ego embeddings, scores on the propagated reps (reference
         # model.py:108-116)
-        l2 = (l2sq(emb[users], dim=1) + l2sq(emb[self.n_users + pos], dim=1)
-              + l2sq(emb[self.n_users + neg], dim=1))
+        l2 = (l2sq(take_rows(emb, users), dim=1)
+              + l2sq(take_rows(emb, self.n_users + pos), dim=1)
+              + l2sq(take_rows(emb, self.n_users + neg), dim=1))
         return u, p, n, l2
 
     def rebuild_for(self, new_dataset):

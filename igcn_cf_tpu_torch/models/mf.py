@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from igcn_cf_tpu_torch.core.registry import MODELS
-from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init
+from igcn_cf_tpu_torch.models.base import Model, l2sq, normal_init, take_rows
 
 
 @MODELS.register("MF")
@@ -39,8 +39,8 @@ class MF(Model):
 
     def bpr_pieces(self, params, buffers, users, pos, neg, *, train,
                    drop=None):
-        u = params["user_embedding"][users]
-        p = params["item_embedding"][pos]
-        n = params["item_embedding"][neg]
+        u = take_rows(params["user_embedding"], users)
+        p = take_rows(params["item_embedding"], pos)
+        n = take_rows(params["item_embedding"], neg)
         l2 = l2sq(u, dim=1) + l2sq(p, dim=1) + l2sq(n, dim=1)
         return u, p, n, l2

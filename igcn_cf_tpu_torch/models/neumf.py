@@ -19,7 +19,12 @@ import torch
 import torch.nn.functional as F
 
 from igcn_cf_tpu_torch.core.registry import MODELS
-from igcn_cf_tpu_torch.models.base import Model, kaiming_uniform, linear_apply
+from igcn_cf_tpu_torch.models.base import (
+    Model,
+    kaiming_uniform,
+    linear_apply,
+    take_rows,
+)
 
 # bytes of one (users, n_items, width) f32 intermediate of ``predict``
 PREDICT_BUDGET_BYTES = 512 * 1024**2
@@ -60,9 +65,10 @@ class NeuMF(Model):
 
     def bce_forward(self, params, users, items):
         """users, items (...,) ids -> (scores (...,), l2 (...,))."""
-        mf = params["mf_user"][users] * params["mf_item"][items]
-        mlp = torch.cat([params["mlp_user"][users], params["mlp_item"][items]],
-                        dim=-1)
+        mf = (take_rows(params["mf_user"], users)
+              * take_rows(params["mf_item"], items))
+        mlp = torch.cat([take_rows(params["mlp_user"], users),
+                         take_rows(params["mlp_item"], items)], dim=-1)
         for layer in params["mlp_layers"]:
             mlp = F.leaky_relu(linear_apply(layer, mlp), negative_slope=0.01)
         if self.arch == "gmf":

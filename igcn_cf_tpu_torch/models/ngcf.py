@@ -44,6 +44,7 @@ from igcn_cf_tpu_torch.models.base import (
     l2sq,
     linear_apply,
     linear_init,
+    take_rows,
 )
 
 
@@ -160,9 +161,9 @@ class NGCF(Model):
     def bpr_pieces(self, params, buffers, users, pos, neg, *, train,
                    drop=None):
         rep = self.rep(params, buffers, train=train, drop=drop)
-        u = rep[users]
-        p = rep[self.n_users + pos]
-        n = rep[self.n_users + neg]
+        u = take_rows(rep, users)
+        p = take_rows(rep, self.n_users + pos)
+        n = take_rows(rep, self.n_users + neg)
         # L2 on the propagated reps (reference model.py:293-299)
         l2 = l2sq(u, dim=1) + l2sq(p, dim=1) + l2sq(n, dim=1)
         return u, p, n, l2

@@ -1261,3 +1261,23 @@ def test_masked_t1_is_bit_equal_on_rows_past_one_list(cuda, name):
     got, _, x = _run_entry(name, wp, 64, cuda)
     unmasked = PAIR_ENTRIES[UNMASKED[name]][0]
     assert torch.equal(got, unmasked(bitpack.mask_words(wp, MASK_SEED, MASK_P), x))
+
+
+def test_take_rows_gradient_is_deterministic(cuda):
+    """The batch-row gather's gradient is bit-equal over two calls with
+    heavy duplicates (each of 512 rows taken ~64 times), and equals the
+    CPU's within f32 rounding."""
+    from igcn_cf_tpu_torch.models.base import take_rows
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(512, 64, generator=gen)
+    idx = torch.randint(0, 512, (3 * 2048, 5), generator=gen)[:, 0]
+    ct = torch.randn(idx.shape[0], 64, generator=gen)
+    xc = x.to(cuda).requires_grad_()
+    grads = [torch.autograd.grad(take_rows(xc, idx.to(cuda)), xc, ct.to(cuda))[0]
+             for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(take_rows(xc, idx.to(cuda)).detach().cpu(), x[idx])
+    xh = x.clone().requires_grad_()
+    want = torch.autograd.grad(take_rows(xh, idx), xh, ct)[0]
+    torch.testing.assert_close(grads[0].cpu(), want, rtol=1e-5, atol=1e-5)

@@ -20,6 +20,7 @@ import torch
 import igcn_cf_tpu.kernels.bitpack as jbp
 import igcn_cf_tpu.kernels.dense_graph as jdg
 from igcn_cf_tpu_torch import tools
+from igcn_cf_tpu_torch.analysis import plots
 from igcn_cf_tpu_torch.data.sampler import DeviceNegativeSampler
 from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.kernels import _build, bitpack, dense_graph, pcache, retrieval
@@ -36,6 +37,7 @@ from igcn_cf_tpu_torch.tools import microbench_gather as mgather
 from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
 from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mtune
 from igcn_cf_tpu_torch.tools import parity_run, soak_gowalla
+from igcn_cf_tpu_torch.tuning import grid, population
 
 ROOT = Path(__file__).resolve().parents[1]
 # bf16 operands, f32 sums in another order: only the sums' rounding differs
@@ -320,7 +322,9 @@ def test_tools_refuse_to_time_without_a_card():
     retrieval.pack_exclusion_words_device, mdual.main, mpc.main,
     mtune.main, mtune.correctness, mgather.main, mgather.correctness,
     mgather.gather_inputs, parity_run.main, soak_gowalla.main,
-    amazon_scale_check.main, amazon_serve_check.main,
+    amazon_scale_check.main, amazon_serve_check.main, grid.grid_search,
+    grid.tune_preset, population.population_grid_search,
+    plots.template_ratio_sweep,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

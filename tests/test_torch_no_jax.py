@@ -76,7 +76,9 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     "igcn_cf_tpu_torch.tools.parity_run",
                                     "igcn_cf_tpu_torch.tools.soak_gowalla",
                                     "igcn_cf_tpu_torch.tools.amazon_scale_check",
-                                    "igcn_cf_tpu_torch.tools.amazon_serve_check"])
+                                    "igcn_cf_tpu_torch.tools.amazon_serve_check",
+                                    "igcn_cf_tpu_torch.tuning.population",
+                                    "igcn_cf_tpu_torch.analysis.plots"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
