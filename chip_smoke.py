@@ -2,9 +2,11 @@
 """Drive the PyTorch port's IGCN serving and training paths, LightGCN and
 NGCF training, the command line's flows (run, dropit, dropui), the four
 kernel-microbenchmark tools, the other five model families, the sparse
-graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run, and
+graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run,
 tuning (``tune``, population against sequential search) with a point of
-the template-ratio sweep, once on one NVIDIA H100.
+the template-ratio sweep, and the multi-device layer (the sharded trainer,
+evaluator and serving over NCCL and gloo worlds, and ``--mesh``), once on
+one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -162,7 +164,25 @@ Phases, each fatal on failure:
      NDCG@20 finite and above 0, K1/K2, K8p and K5 launched; then one step
      of its trainer at feature_ratio 0.5 through the kernels against the
      plain versions, as phase 6's.
-  13. output -- a JSON line of the kernels (each with its launches, error,
+  13. the multi-device layer -- (a) a world of one rank over NCCL
+     (``core/mesh.make_mesh(1, 1)``) at the Gowalla scale:
+     ``ShardedIGCNTrainer`` at the IGCN preset on the cache engine (its
+     slab is the whole P) for one epoch and a sharded val eval, the loss
+     falling and the NDCG rising; its val ids against one device's K5 over
+     the same representations, identical; its step against the
+     single-device IGCNTrainer's on the same params and batch, dropout 0
+     (phase 6's tolerances); 20 sparse-engine steps; 5 dense-sharded steps
+     at dropout 0.3 (K6m/K7m); ``Recommender.from_checkpoint(...,
+     mesh=)`` ids identical to one device's at 512 and 4,096 users. (b)
+     two processes on the one card over gloo (``spawn_world``) at the
+     quarter catalog, d=64, 3 layers: the cache, sparse and dense steps
+     and ``sharded_recommend`` against (a)'s world on the same global
+     params, batch and representations (loss and gradients within phase
+     6's tolerances, ids identical); each rank's K3/K4 on its slab (fewer
+     columns than rows) and K5 on its item block against their plain
+     versions. (c) ``dropui --mesh 1x1`` through the command line: the
+     JAX package's lines. K3-K7 and K6m/K7m must launch on these paths.
+  14. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -2646,6 +2666,516 @@ def phase_tune(full, smi):
     return launches
 
 
+# -- phase 13: the multi-device layer -------------------------------------------
+
+# the kernels the sharded paths launch: K3/K4 on the cache engine's slab, K5
+# in the sharded evals and mesh serving, K6/K7 in the slab builds and the
+# dense step's propagation, K6m/K7m in the dense step's dropped aggregation
+MESH_KERNELS = ("K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
+MESH_SPARSE_STEPS = 20
+MESH_DENSE_STEPS = 5
+MESH_RDV = CACHE_DIR / "mesh_rdv"
+
+
+def _launch_delta(start):
+    from igcn_cf_tpu_torch.kernels import _build
+
+    return {k: v - start[k] for k, v in _build.LAUNCHES.items()}
+
+
+def _check_sharded_step(ts, ref_loss, ref_grads, label):
+    """``ts``'s loss and gradients against a reference's, with (a)'s step
+    tolerances: loss 1e-5 relative, each gradient within 1e-2 of its
+    largest magnitude over the reference's rows."""
+    rel = abs(ts[0] - ref_loss) / abs(ref_loss)
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"{label}: loss {ts[0]} vs {ref_loss}")
+    worst = 0.0
+    for name, want in ref_grads.items():
+        got = ts[1][name][: len(want)] if want.ndim else ts[1][name]
+        err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        worst = max(worst, err)
+        if not err <= STEP_GRAD_REL:
+            raise AssertionError(f"{label}: gradient of {name} off by {err:.3g} "
+                                 "of its largest magnitude")
+    return rel, worst
+
+
+def collective_ms(mesh, rows: int, d: int, r: int) -> dict:
+    """Milliseconds (CUDA events, median of 10) of the sharded step's two
+    collectives at its shapes: the all-gather of an embedding table of
+    ``rows`` x ``d`` f32 from its row blocks, and the psum of the cache
+    engine's (``r``, d) f32 partials over the table ranks."""
+    import torch
+
+    from igcn_cf_tpu_torch.core.mesh import all_reduce_, gather_rows
+    from igcn_cf_tpu_torch.utils.timing import cuda_ms
+
+    block = torch.randn((rows // mesh.table, d), device=mesh.device)
+    part = torch.randn((r, d), device=mesh.device)
+    return {"all_gather": cuda_ms(lambda: gather_rows(block, mesh)),
+            "psum": cuda_ms(lambda: all_reduce_(part.clone(),
+                                                mesh.table_group))}
+
+
+def mesh_sharded_vs_single_step(ts, full, mc, tc):
+    """One step of the 1x1 sharded cache engine against the single-device
+    IGCNTrainer's on the same params and batch, dropout 0 (P built for
+    each). Returns the log text."""
+    import torch
+
+    from igcn_cf_tpu_torch.models.base import get_model
+    from igcn_cf_tpu_torch.train.trainer import get_trainer
+
+    model = get_model(dict(mc, dropout=0.0, prop_cache=True), full, "cuda")
+    single = get_trainer(tc, full, model)
+    with torch.no_grad():
+        single.params["embedding"].copy_(
+            ts.params["embedding"][: model.n_templates])
+        single.params["w"].copy_(ts.params["w"])
+    # the sharded state's alpha, annealed by its epoch
+    model.alpha = float(ts.buffers["alpha"])
+    single.buffers = dict(single.buffers, alpha=ts.buffers["alpha"].clone())
+    batch = ts.sample_batch(torch.Generator(device="cuda").manual_seed(5))
+    loss = float(ts.grads(batch))
+    grads = {k: v.grad.detach().cpu().numpy() for k, v in ts.params.items()}
+    single_loss = single.loss(single.params, batch[:3], batch[3:], None)
+    single_grads = torch.autograd.grad(single_loss, list(single.params.values()))
+    single_loss = float(single_loss.detach())
+    ref = {k: g.cpu().numpy() for k, g in zip(single.params, single_grads)}
+    rel, worst = _check_sharded_step((loss, grads), single_loss, ref,
+                                     "1x1 cache step vs one device")
+    del single, model
+    return (f"loss {loss:.8f} vs {single_loss:.8f} (rel {rel:.3g}), "
+            f"gradients within {worst:.3g} of their largest magnitude")
+
+
+def mesh_world1(full, mesh, smi):
+    """(a) A world of one rank over NCCL at the Gowalla scale: the sharded
+    trainer's cache engine (its slab is the whole P) for one epoch and a
+    sharded val eval, its step against the single-device step, its val
+    ids against one device's retrieval of the same representations; 20
+    sparse-engine steps; 5 dense-sharded steps at dropout 0.3; mesh
+    serving against one device at 512 and 4,096 users."""
+    import shutil
+
+    import torch
+
+    from igcn_cf_tpu_torch.evaluation.evaluate import packed_exclusion
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.kernels.bitpack import pad_to
+    from igcn_cf_tpu_torch.kernels.retrieval import LI, NEG, fused_topk_ids
+    from igcn_cf_tpu_torch.parallel.dense_steps import (
+        build_inmo_dense_sharded_train,
+    )
+    from igcn_cf_tpu_torch.parallel.eval import sharded_recommend
+    from igcn_cf_tpu_torch.parallel.steps import build_inmo_sharded_train
+    from igcn_cf_tpu_torch.parallel.trainer import ShardedIGCNTrainer
+    from igcn_cf_tpu_torch.serve import Recommender
+
+    mc, tc = gowalla_preset("IGCN")
+    work = CACHE_DIR / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def counted(fn):
+        start = dict(_build.LAUNCHES)
+        out = fn()
+        sync()
+        for k, v in _launch_delta(start).items():
+            launches[k] += v
+        return out
+
+    sync()
+    t0 = time.perf_counter()
+    trainer = counted(lambda: ShardedIGCNTrainer(tc, full, mesh,
+                                                 dict(mc, prop_cache="auto")))
+    init_s = time.perf_counter() - t0
+    ts = trainer.train_state
+    slab = ts.buffers.get("pcache")
+    if slab is None:
+        raise AssertionError("the 1x1 sharded trainer did not take the cache "
+                             "engine")
+    _, before = trainer.eval("val")
+    old_cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        best = counted(lambda: trainer.train(verbose=False))
+    finally:
+        os.chdir(old_cwd)
+    rec = trainer.history[0]
+    losses = ts.step_losses.float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite sharded cache-engine loss")
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    steps = ts.steps_per_epoch
+    log(f"# mesh 1x1 (nccl) ShardedIGCNTrainer, cache engine: init "
+        f"{init_s:.3f} s (slab {tuple(slab.shape)} bf16, "
+        f"{slab.numel() * 2 / 1e9:.2f} GB, built in {ts.pcache_build_s:.3f} "
+        f"s); 1 epoch of {steps} steps in "
+        f"{rec['train_s']:.3f} s ({rec['train_s'] / steps * 1e3:.4f} ms/step), "
+        f"loss first 50 {first:.6f} -> last 50 {last:.6f}; val NDCG@{K} "
+        f"untrained {before['NDCG'][K]:.6f} -> {rec['ndcg']:.6f} (sharded eval "
+        f"{rec['val_s']:.3f} s); best {best:.6f} ({smi})")
+    if not last < first or not rec["ndcg"] > before["NDCG"][K]:
+        raise AssertionError("the sharded cache engine did not learn")
+    coll = collective_ms(mesh, ts.t_rows * mesh.table, mc["embedding_size"],
+                         3 * tc["batch_size"])
+    log(f"# mesh 1x1 (nccl) collectives: all_gather of the "
+        f"{ts.t_rows * mesh.table} x {mc['embedding_size']} table "
+        f"{coll['all_gather']:.4f} ms, psum of the (6144, 64) partials "
+        f"{coll['psum']:.4f} ms (events)")
+
+    users_rep, items_rep = trainer._reps()
+    ids = counted(lambda: sharded_recommend(mesh, users_rep, items_rep, full,
+                                            "val", [K]))
+    nip = pad_to(full.n_items, LI)
+    items_t = torch.zeros((items_rep.shape[1], nip), device="cuda")
+    items_t[:, : full.n_items] = items_rep.T
+    banned = torch.zeros((1, nip), device="cuda")
+    banned[0, full.n_items:] = NEG
+    one = fused_topk_ids(users_rep.contiguous(), items_t,
+                         packed_exclusion(full, "val", nip, "cuda"), banned,
+                         k=K)
+    if not torch.equal(ids, one.long()):
+        raise AssertionError("sharded val ids differ from one device's")
+    log(f"# mesh 1x1 sharded val ids ({full.n_users} users, k={K}) equal to "
+        "one device's K5 over the same representations")
+    log(f"# mesh 1x1 cache step vs the single-device IGCNTrainer step (same "
+        f"params and batch, dropout 0): "
+        f"{mesh_sharded_vs_single_step(ts, full, mc, tc)}")
+    del trainer, ts, slab
+    torch.cuda.empty_cache()
+
+    kw = dict(embedding_size=mc["embedding_size"], n_layers=mc["n_layers"],
+              dropout=mc["dropout"], lr=tc["lr"], l2_reg=tc["l2_reg"],
+              aux_reg=tc["aux_reg"], batch_size=tc["batch_size"], seed=SEED)
+    from igcn_cf_tpu_torch.core.prng import KeySeq
+
+    keys = KeySeq(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, build, n_steps in (
+            ("sparse engine", lambda: build_inmo_sharded_train(
+                full, mesh, prop_cache=False, **kw), MESH_SPARSE_STEPS),
+            ("dense-sharded step (K6m/K7m)", lambda: build_inmo_dense_sharded_train(
+                full, mesh, **kw), MESH_DENSE_STEPS)):
+        state = counted(build)
+        state.step(state.sample_batch(gen), keys.next_seed())  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        step_losses = counted(lambda: torch.stack(
+            [state.step(state.sample_batch(gen), keys.next_seed())
+             for _ in range(n_steps)]))
+        ms = (time.perf_counter() - t0) / n_steps * 1e3
+        if not bool(torch.isfinite(step_losses).all()):
+            raise AssertionError(f"mesh 1x1 {label}: non-finite loss")
+        log(f"# mesh 1x1 {label}: {n_steps} steps at dropout {mc['dropout']}, "
+            f"{ms:.4f} ms/step, loss {float(step_losses[0]):.6f} -> "
+            f"{float(step_losses[-1]):.6f}")
+        del state
+    torch.cuda.empty_cache()
+
+    ckpt = write_checkpoint(full, np.random.default_rng(SEED))
+    rec_m = counted(lambda: Recommender.from_checkpoint(str(ckpt), mc, full,
+                                                        mesh=mesh))
+    rec_1 = Recommender.from_checkpoint(str(ckpt), mc, full, device="cuda")
+    rng = np.random.default_rng(3)
+    for n in REQUEST_SIZES:
+        users = rng.choice(full.n_users, n, replace=False)
+        got = counted(lambda: rec_m.recommend(users, k=K))
+        want = rec_1.recommend(users, k=K)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mesh serving differs from one device at "
+                                 f"{n} users")
+        mesh_ms = cuda_wall_ms(lambda: rec_m.recommend(users, k=K))
+        one_ms = cuda_wall_ms(lambda: rec_1.recommend(users, k=K))
+        log(f"# Recommender(mesh=1x1) at {n} users, k={K}: ids equal to one "
+            f"device's; {mesh_ms:.4f} ms a request against {one_ms:.4f} ms "
+            "(wall, median of 5)")
+    del rec_m, rec_1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cuda_wall_ms(fn, reps: int = 5) -> float:
+    """Median wall milliseconds of ``fn`` ending in a synchronize, after a
+    warm-up call (host work and the ids' read-back included)."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _mesh_steps(ds, mesh, params, dense_params, batch, users_rep, items_rep):
+    """The quarter catalog's cache, sparse and dense steps (dropout 0) and
+    sharded_recommend on ``mesh``, on the given global params, batch and
+    representations: {engine: (loss, this rank's gradients)}, the ids and
+    the cache engine's train state (its slab)."""
+    import torch
+
+    from igcn_cf_tpu_torch.core.mesh import row_block
+    from igcn_cf_tpu_torch.parallel.dense_steps import (
+        build_inmo_dense_sharded_train,
+    )
+    from igcn_cf_tpu_torch.parallel.eval import sharded_recommend
+    from igcn_cf_tpu_torch.parallel.steps import build_inmo_sharded_train
+
+    kw = dict(embedding_size=64, n_layers=3, dropout=0.0, l2_reg=0.0,
+              aux_reg=0.01, batch_size=2048, seed=SEED)
+    dev_batch = tuple(torch.as_tensor(b).to(mesh.device) for b in batch)
+    out = {}
+    cache_state = None
+    for engine, pc in (("cache", True), ("sparse", False)):
+        ts = build_inmo_sharded_train(ds, mesh, prop_cache=pc, **kw)
+        emb = params["embedding"][: ts.n_templates]
+        with torch.no_grad():
+            ts.params["embedding"].copy_(torch.as_tensor(
+                row_block(emb, mesh.t, ts.t_rows)))
+            ts.params["w"].copy_(torch.as_tensor(params["w"]))
+        loss = float(ts.grads(dev_batch))
+        out[engine] = (loss, {k: v.grad.cpu().numpy()
+                              for k, v in ts.params.items()})
+        if pc:
+            cache_state = ts
+    st = build_inmo_dense_sharded_train(ds, mesh, **kw)
+    with torch.no_grad():
+        for name, n in (("emb_u", ds.n_users), ("emb_i", ds.n_items)):
+            rows = st.params[name].shape[0]
+            st.params[name].copy_(torch.as_tensor(
+                row_block(dense_params[name][:n], mesh.t, rows)))
+        st.params["toks"].copy_(torch.as_tensor(dense_params["toks"]))
+        st.params["w"].copy_(torch.as_tensor(dense_params["w"]))
+    loss = float(st.grads(dev_batch))
+    out["dense"] = (loss, {k: v.grad.cpu().numpy() for k, v in st.params.items()})
+    ids = sharded_recommend(mesh, torch.as_tensor(users_rep).to(mesh.device),
+                            torch.as_tensor(items_rep).to(mesh.device), ds,
+                            "val", [K])
+    return out, ids.cpu().numpy(), cache_state
+
+
+def mesh_rank(rank, spec):
+    """(b) one of two ranks on the one card over gloo: the quarter
+    catalog's steps and sharded_recommend on the world-1 inputs, then,
+    outside the count, K3/K4 on this rank's narrow slab and K5 on its item
+    block against their plain versions."""
+    import torch
+
+    from igcn_cf_tpu_torch.core.mesh import make_mesh
+    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.kernels import _build, pcache
+    from igcn_cf_tpu_torch.kernels.retrieval import (
+        LI,
+        fused_topk_ids,
+        fused_topk_ids_plain,
+    )
+    from igcn_cf_tpu_torch.parallel.eval import ItemBlock, shard_exclusion
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, 2, device="cuda", backend="gloo")
+    ds = synthetic_interactions(**QUARTER)
+    _build.library()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out, ids, ts = _mesh_steps(ds, mesh, spec["params"], spec["dense_params"],
+                               spec["batch"], spec["users_rep"],
+                               spec["items_rep"])
+    torch.cuda.synchronize()
+    result = {"t": mesh.t, "steps": out, "ids": ids,
+              "seconds": time.perf_counter() - t0,
+              "launches": dict(_build.LAUNCHES)}
+    result["collectives"] = collective_ms(mesh, ts.t_rows * mesh.table, 64,
+                                          6144)
+    # kernels against their plain versions at this rank's shapes
+    slab = ts.buffers["pcache"]
+    batch = [torch.as_tensor(b).cuda() for b in spec["batch"][:3]]
+    rows = torch.cat([batch[0], ds.n_users + batch[1],
+                      ds.n_users + batch[2]]).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    x0b = torch.randn((slab.shape[1], 64), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    ctb = torch.randn((rows.shape[0], 64), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    for name, kern, plain, x in (
+            ("K3", pcache.gather_fwd, pcache.gather_fwd_plain, x0b),
+            ("K4", pcache.gather_bwd, pcache.gather_bwd_plain, ctb)):
+        got, want = kern(slab, rows, x), plain(slab, rows, x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=GATHER_RTOL, atol=GATHER_ATOL)
+        result[name] = (tuple(slab.shape), float((got - want).abs().max()))
+    users_rep = torch.as_tensor(spec["users_rep"]).cuda()
+    block = ItemBlock.from_reps(torch.as_tensor(spec["items_rep"]).cuda(),
+                                ds.n_items, mesh)
+    words = shard_exclusion(ds, "val", block)
+    got = fused_topk_ids(users_rep, block.items_t, words, block.banned_row, k=K)
+    want = fused_topk_ids_plain(users_rep, block.items_t, words,
+                                block.banned_row, k=K)
+    scores = plain_scores(users_rep, block.items_t, words, block.banned_row, LI)
+    same, gap = topk_agree(got, want, scores, TOPK_RTOL)
+    result["K5"] = (block.offset, block.n_real, block.nip, same, gap)
+    return result
+
+
+def mesh_world2(mesh, smi):
+    """(b) Two processes on the one card over gloo at the quarter catalog
+    (parity_run's, 7,464 x 10,245), d=64, 3 layers: the cache, sparse and
+    dense steps and sharded_recommend against this process's world of one
+    (NCCL) on the same global params, batch and representations; each
+    rank's K3/K4 on its narrow slab and K5 on its item block against their
+    plain versions. Returns the two ranks' launches on the path."""
+    import shutil
+
+    import torch
+
+    from igcn_cf_tpu_torch.core.mesh import spawn_world
+    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.parallel.dense_steps import (
+        build_inmo_dense_sharded_train,
+    )
+    from igcn_cf_tpu_torch.parallel.steps import build_inmo_sharded_train
+
+    ds = synthetic_interactions(**QUARTER)
+    kw = dict(embedding_size=64, n_layers=3, dropout=0.0, batch_size=2048,
+              seed=SEED)
+    ts = build_inmo_sharded_train(ds, mesh, prop_cache=False, **kw)
+    params = {k: v.detach().cpu().numpy() for k, v in ts.params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = [b.cpu().numpy() for b in ts.sample_batch(gen)]
+    rep = ts.rep()
+    users_rep = rep[: ds.n_users].cpu().numpy()
+    items_rep = rep[ds.n_users: ds.n_users + ds.n_items].cpu().numpy()
+    st = build_inmo_dense_sharded_train(ds, mesh, **kw)
+    dense_params = {k: v.detach().cpu().numpy() for k, v in st.params.items()}
+    del ts, st, rep
+    one, one_ids, _ = _mesh_steps(ds, mesh, params, dense_params, batch,
+                                  users_rep, items_rep)
+    torch.cuda.empty_cache()
+    shutil.rmtree(MESH_RDV, ignore_errors=True)
+    MESH_RDV.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks = spawn_world(mesh_rank, 2, "gloo", str(MESH_RDV),
+                        dict(params=params, dense_params=dense_params,
+                             batch=batch, users_rep=users_rep,
+                             items_rep=items_rep), timeout_s=600)
+    world_s = time.perf_counter() - t0
+    for engine in ("cache", "sparse", "dense"):
+        loss = ranks[0]["steps"][engine][0]
+        grads = {}
+        for name in ranks[0]["steps"][engine][1]:
+            parts = [r["steps"][engine][1][name] for r in ranks]
+            grads[name] = (np.concatenate(parts) if name in
+                           ("embedding", "emb_u", "emb_i") else parts[0])
+        ref_loss, ref = one[engine]
+        n_rows = {"embedding": ds.n_users + ds.n_items + 2,
+                  "emb_u": ds.n_users, "emb_i": ds.n_items}
+        ref = {k: v[: n_rows[k]] if k in n_rows else v for k, v in ref.items()}
+        rel, worst = _check_sharded_step((loss, grads), ref_loss, ref,
+                                         f"mesh 1x2 {engine} step")
+        log(f"# mesh 1x2 (gloo, two ranks on one card) {engine} step vs 1x1 "
+            f"(nccl): loss {loss:.8f} vs {ref_loss:.8f} (rel {rel:.3g}), "
+            f"gradients within {worst:.3g} of their largest magnitude")
+    for r in ranks:
+        if not np.array_equal(r["ids"], one_ids):
+            raise AssertionError(f"mesh 1x2 rank {r['t']}: sharded_recommend "
+                                 "ids differ from 1x1")
+        (shape, e3), (_, e4) = r["K3"], r["K4"]
+        offset, n_real, nip, same, gap = r["K5"]
+        log(f"# mesh 1x2 rank {r['t']}: K3/K4 on its slab {shape} (fewer "
+            f"columns than rows) vs plain: max_abs_err {e3:.3g} / {e4:.3g}; K5 "
+            f"on its item block (offset {offset}, {n_real} items, {nip} "
+            f"padded) vs plain: {same} of {ds.n_users} rows identical, max "
+            f"score gap {gap:.3g}; the path's launches {r['launches']}; "
+            f"{r['seconds']:.3f} s; all_gather of the table "
+            f"{r['collectives']['all_gather']:.4f} ms, psum of the (6144, 64) "
+            f"partials {r['collectives']['psum']:.4f} ms (events)")
+    log(f"# mesh 1x2 sharded_recommend ids equal to 1x1 on both ranks; the "
+        f"world of two {world_s:.1f} s with its start ({smi})")
+    return [r["launches"] for r in ranks]
+
+
+def mesh_cli(full, smi):
+    """(c) ``dropui --mesh 1x1`` through the command line in-process, the
+    Gowalla preset cut to one epoch, cwd .smoke/mesh_cli/: the JAX
+    package's lines; the process group torn down at its end."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from igcn_cf_tpu_torch.cli import main as cli
+    from igcn_cf_tpu_torch.kernels import _build
+
+    text = write_text_dataset(full)
+    if not Path(f"{text}_dropui").is_dir():
+        cli.main(["derive", "--kind", "dropui", "--path", str(text)])
+    work = CACHE_DIR / "mesh_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    old_cwd, tee = os.getcwd(), _Tee(sys.stdout)
+    start = dict(_build.LAUNCHES)
+    sync()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(tee):
+            cli.main(["dropui", "--config", "2", "--data-path", str(text),
+                      "--n-epochs", "1", "--mesh", "1x1"])
+    finally:
+        os.chdir(old_cwd)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _launch_delta(start)
+    out = tee.text()
+    for pattern in (r"^Epoch 0/1, Loss: \d+\.\d+, Time: ",
+                    r"^Validation result\. Precision: [\d.]+%@20, Recall: ",
+                    r"^Best NDCG, save model to checkpoints/"
+                    r"IGCN_ShardedIGCNTrainer_", r"^Inductive results\.$",
+                    r"^Popularity model results\.$"):
+        if not re.search(pattern, out, re.M):
+            raise AssertionError(f"dropui --mesh 1x1: no line {pattern!r}")
+    slices = _slice_lines(out, "Inductive results.")
+    pop = _slice_lines(out, "Popularity model results.")
+    if slices != pop or len(slices) != 6:
+        raise AssertionError(f"dropui --mesh 1x1 slices: {slices} / {pop}")
+    if dist.is_initialized():
+        raise AssertionError("dropui --mesh 1x1 left its process group up")
+    log(f"# CLI dropui --mesh 1x1: {wall:.3f} s wall ({smi}); launches "
+        f"{launches}")
+    return launches
+
+
+def phase_mesh(full, smi):
+    """The multi-device layer: (a) a world of one over NCCL at full width,
+    (b) two processes on the one card over gloo at the quarter catalog
+    against (a)'s world, (c) ``dropui --mesh 1x1``. Each part's path is
+    driven with the counts set to 0 just before and read just after (the
+    ranks of (b) count in their own processes); the kernels' checks
+    against their plain versions run outside the count. Returns the
+    launches."""
+    import torch
+
+    from igcn_cf_tpu_torch.core.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, device="cuda")
+    if mesh.backend != "nccl":
+        raise AssertionError(f"the 1x1 mesh runs {mesh.backend}, not nccl")
+    runs = [mesh_world1(full, mesh, smi)]
+    torch.cuda.empty_cache()
+    runs += mesh_world2(mesh, smi)
+    torch.cuda.empty_cache()
+    runs.append(mesh_cli(full, smi))
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
+    check_launches(launches, MESH_KERNELS, "multi-device")
+    log(f"# launches on the multi-device paths: {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2700,8 +3230,14 @@ def main() -> int:
     stray = {k: tune_launches[k] for k in TOOL_ONLY if tune_launches[k]}
     if stray:
         raise AssertionError(f"the tools' kernels launched in tuning: {stray}")
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(full, smi)
+    stray = {k: mesh_launches[k] for k in TOOL_ONLY if mesh_launches[k]}
+    if stray:
+        raise AssertionError(f"the tools' kernels launched on the "
+                             f"multi-device paths: {stray}")
     runs = earlier + [tool_launches, zoo_launches, sparse_launches,
-                      tune_launches]
+                      tune_launches, mesh_launches]
     log(f"# mask launches over the run: K8 (one seed) "
         f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
         f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "

@@ -15,6 +15,11 @@ dropui (port of the single-device part of ``igcn_cf_tpu/cli/flows.py``).
     transductively trained checkpoint, and against the Popularity floor
     (reference run/dropui/igcn_dropui.py:37-48).
 
+  * ``train_eval_sharded``, ``run_dropit_sharded``, ``run_dropui_sharded``
+    -- the same three over a (data, table) mesh through
+    ``parallel/trainer.ShardedIGCNTrainer`` (IGCN/IMF only, as in the JAX
+    package), one process a shard (``torchrun``); rank 0 prints.
+
 Every flow takes the ``device`` its models run on: the card unless the
 caller asks for the CPU. The evaluations after training go through
 ``BasicTrainer.for_eval``, which keeps the trained params and the given
@@ -132,6 +137,93 @@ def run_dropui(dataset_config, model_config, trainer_config, writer=None,
     if compare_popularity:
         # reference run/dropui/igcn_dropui.py:43-48
         pop = get_model({"name": "Popularity"}, new_dataset, device)
+        pop_trainer = get_trainer(
+            {"name": "BasicTrainer", "n_epochs": 0,
+             "test_batch_size": trainer_config.get("test_batch_size", 512),
+             "topks": trainer_config["topks"]},
+            new_dataset, pop)
+        print("Popularity model results.")
+        out["popularity"] = pop_trainer.inductive_eval(old_n_users, old_n_items)
+    return out
+
+
+def _sharded_trainer(dataset_config, model_config, trainer_config, data,
+                     table, device):
+    """The mesh (the process group started if it is not up) and a
+    ``ShardedIGCNTrainer`` on it."""
+    from igcn_cf_tpu_torch.core.mesh import make_mesh
+    from igcn_cf_tpu_torch.parallel.trainer import ShardedIGCNTrainer
+
+    if model_config["name"] not in ("IGCN", "IMF"):
+        raise ValueError(
+            f"--mesh training supports IGCN/IMF, not {model_config['name']}")
+    mesh = make_mesh(data, table, device=device)
+    dataset = get_dataset(dataset_config)
+    if model_config["name"] == "IMF":
+        model_config = dict(model_config, n_layers=0)
+    return ShardedIGCNTrainer(trainer_config, dataset, mesh, model_config)
+
+
+def train_eval_sharded(dataset_config, model_config, trainer_config, *,
+                       data=1, table=None, writer=None, verbose=True,
+                       device="cuda"):
+    """The transductive flow (reference run/run.py:10-26) over a (data,
+    table) mesh; ``writer`` is used on rank 0."""
+    trainer = _sharded_trainer(dataset_config, model_config, trainer_config,
+                               data, table, device)
+    trainer.train(verbose=verbose, writer=writer)
+    results, metrics = trainer.eval("test")
+    if trainer.is_writer:
+        print("Test result. {:s}".format(results))
+    return trainer, metrics
+
+
+def run_dropit_sharded(dataset_config, model_config, trainer_config, *,
+                       data=1, table=None, verbose=True, device="cuda"):
+    """dropit over the mesh (reference run/dropit/igcn_dropit.py:10-41):
+    train on the reduced-interaction split, evaluate the full split with
+    the stale structures, then after a sharded rebuild."""
+    trainer = _sharded_trainer(dataset_config, model_config, trainer_config,
+                               data, table, device)
+    trainer.train(verbose=verbose)
+    new_dataset = get_dataset(_full_split(dataset_config, "_dropit"))
+    say = print if trainer.is_writer else (lambda *a: None)
+
+    # 1) stale structures: only interactions grew; the old edge shards
+    trainer.dataset = new_dataset
+    results, prev_metrics = trainer.eval("test")
+    say("Previous interactions test result. {:s}".format(results))
+
+    # 2) rebuilt over the new interactions (templates and params kept)
+    trainer.rebuild_for(new_dataset)
+    results, upd_metrics = trainer.eval("test")
+    say("Updated interactions test result. {:s}".format(results))
+    return {"previous": prev_metrics, "updated": upd_metrics}
+
+
+def run_dropui_sharded(dataset_config, model_config, trainer_config, *,
+                       data=1, table=None, verbose=True,
+                       compare_popularity=True, device="cuda"):
+    """dropui over the mesh (reference run/dropui/igcn_dropui.py:10-48):
+    train on the 80%-users/items split, rebuild the sharded structures over
+    the full split (new users and items get feature rows over the OLD
+    templates, no new parameters), then the six-slice inductive eval; the
+    Popularity floor on rank 0 alone (it has no trainable state and no
+    collective)."""
+    trainer = _sharded_trainer(dataset_config, model_config, trainer_config,
+                               data, table, device)
+    trainer.train(verbose=verbose)
+    old_n_users = trainer.dataset.n_users
+    old_n_items = trainer.dataset.n_items
+    new_dataset = get_dataset(_full_split(dataset_config, "_dropui"))
+
+    trainer.rebuild_for(new_dataset)
+    if trainer.is_writer:
+        print("Inductive results.")
+    out = {"inductive": trainer.inductive_eval(old_n_users, old_n_items)}
+    if compare_popularity and trainer.is_writer:
+        pop = get_model({"name": "Popularity"}, new_dataset,
+                        trainer.mesh.device)
         pop_trainer = get_trainer(
             {"name": "BasicTrainer", "n_epochs": 0,
              "test_batch_size": trainer_config.get("test_batch_size", 512),

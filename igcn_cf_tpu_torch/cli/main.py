@@ -13,7 +13,15 @@ device). Every flow is a subcommand:
 ``dropui`` and ``tune`` run on the card unless ``--device cpu`` is given;
 where no card is visible they raise. Every preset's model is ported.
 ``tune`` takes ``--seed`` and ``--n-epochs``, which the JAX package's
-drops. Not ported: ``--mesh`` and ``tune --trial-mesh``.
+drops.
+
+``--mesh DxT`` on ``run``, ``dropit`` and ``dropui`` trains IGCN/IMF
+sharded over a data x table mesh, one process a shard, started by
+``torchrun`` (``torchrun --nproc-per-node 2 -m igcn_cf_tpu_torch.cli.main
+run ... --mesh 1x2``); a 1x1 mesh runs in one plain process. The world
+must hold D*T processes. NCCL takes one process a card (on the card;
+gloo with ``--device cpu``).
+Not ported: ``tune --trial-mesh``.
 """
 
 from __future__ import annotations
@@ -80,8 +88,33 @@ def _writer(args):
     return contextlib.closing(MetricsWriter(args.log_dir))
 
 
+def _mesh_shape(spec: str):
+    """'DxT' -> (D, T)."""
+    try:
+        data, table = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DxT, e.g. 1x2, not {spec!r}") from None
+    return data, table
+
+
+@contextlib.contextmanager
+def _mesh_run(args):
+    """(data, table) of ``--mesh`` for the block; the process group the
+    flow starts is torn down when the block ends, however it ends."""
+    import torch.distributed as dist
+
+    try:
+        yield _mesh_shape(args.mesh)
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def cmd_run(args):
-    from igcn_cf_tpu_torch.cli.flows import train_eval_transductive
+    from igcn_cf_tpu_torch.cli.flows import (
+        train_eval_sharded,
+        train_eval_transductive,
+    )
 
     device = _start(args)
     if args.debug_nans:
@@ -89,6 +122,14 @@ def cmd_run(args):
 
         torch.autograd.set_detect_anomaly(True)
     dc, mc, tc = _select(args)
+    if args.mesh:
+        # one writer, on rank 0 (torchrun's RANK; a plain 1x1 run is rank 0)
+        writes = int(os.environ.get("RANK", "0")) == 0
+        with _mesh_run(args) as (data, table), \
+                (_writer(args) if writes else contextlib.nullcontext()) as writer:
+            train_eval_sharded(dc, mc, tc, writer=writer,
+                               data=data, table=table, device=device)
+        return
     if args.resume:
         tc["state_interval"] = tc.get("state_interval", 5)
     with _writer(args) as writer, _profiled(args.profile):
@@ -97,23 +138,33 @@ def cmd_run(args):
 
 
 def cmd_dropit(args):
-    from igcn_cf_tpu_torch.cli.flows import run_dropit
+    from igcn_cf_tpu_torch.cli.flows import run_dropit, run_dropit_sharded
 
     device = _start(args)
     dc, mc, tc = _select(args)
     if not dc["path"].endswith("_dropit"):
         dc["path"] += "_dropit"
+    if args.mesh:
+        with _mesh_run(args) as (data, table):
+            run_dropit_sharded(dc, mc, tc,
+                               data=data, table=table, device=device)
+        return
     with _writer(args) as writer:
         run_dropit(dc, mc, tc, writer=writer, device=device)
 
 
 def cmd_dropui(args):
-    from igcn_cf_tpu_torch.cli.flows import run_dropui
+    from igcn_cf_tpu_torch.cli.flows import run_dropui, run_dropui_sharded
 
     device = _start(args)
     dc, mc, tc = _select(args)
     if not dc["path"].endswith("_dropui"):
         dc["path"] += "_dropui"
+    if args.mesh:
+        with _mesh_run(args) as (data, table):
+            run_dropui_sharded(dc, mc, tc,
+                               data=data, table=table, device=device)
+        return
     with _writer(args) as writer:
         run_dropui(dc, mc, tc, writer=writer,
                    compare_transductive_path=args.compare_transductive,
@@ -194,16 +245,25 @@ def build_parser():
                         help="torch device the models run on (default: the "
                              "card; 'cpu' runs the kernels' plain versions)")
 
+    def mesh(sp, what):
+        sp.add_argument("--mesh", default=None, metavar="DxT",
+                        help=f"{what} sharded over a data x table mesh "
+                             "(IGCN/IMF), one process a shard started by "
+                             "torchrun, e.g. --mesh 1x2")
+
     sp = sub.add_parser("run", help="transductive train + test eval")
     common(sp)
+    mesh(sp, "train")
     sp.set_defaults(fn=cmd_run)
 
     sp = sub.add_parser("dropit", help="inductive new-interaction protocol")
     common(sp)
+    mesh(sp, "run the dropit protocol")
     sp.set_defaults(fn=cmd_dropit)
 
     sp = sub.add_parser("dropui", help="inductive new-user/item protocol")
     common(sp)
+    mesh(sp, "run the dropui protocol")
     sp.add_argument("--compare-transductive", default=None,
                     help="checkpoint of a transductively trained model")
     sp.set_defaults(fn=cmd_dropui)

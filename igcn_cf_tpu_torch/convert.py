@@ -159,3 +159,47 @@ def split_population(params, opt_state, n_trials: int) -> list:
     return [(take(params, t), {"count": np.int32(count[t if count.size > 1 else 0]),
                                "mu": take(mu, t), "nu": take(nu, t)})
             for t in range(n_trials)]
+
+
+# -- sharded params: the JAX package's global arrays <-> this rank's blocks ---
+
+# The JAX sharded steps' table-sharded parameters and how their global
+# arrays split: ``parallel/steps`` holds one (n_templates_pad, d) table in
+# row blocks; ``parallel/dense_steps`` stacks (T, rows, d) per shard.
+SHARDED_ROWS = {"embedding"}
+SHARDED_STACKED = {"emb_u", "emb_i"}
+
+
+def sharded_params_from_jax(params: dict, mesh, device=None) -> dict:
+    """{name: array} global params of a JAX sharded step at the same table
+    size (numpy, or anything ``np.asarray`` takes) -> this rank's tensors
+    on ``device`` (the mesh's by default): the row block ``t`` of
+    ``embedding``, the shard ``t`` of ``emb_u``/``emb_i``, the rest
+    whole."""
+    device = mesh.device if device is None else device
+    out = {}
+    for name, v in params.items():
+        a = np.asarray(v)
+        if name in SHARDED_ROWS:
+            rows = a.shape[0] // mesh.table
+            a = a[mesh.t * rows: (mesh.t + 1) * rows]
+        elif name in SHARDED_STACKED:
+            a = a[mesh.t]
+        out[name] = torch.tensor(np.array(a), device=device)
+    return out
+
+
+def sharded_params_to_jax(params: dict, mesh) -> dict:
+    """This rank's param blocks -> the JAX sharded step's global numpy
+    arrays, gathered along ``table`` (every table rank joins)."""
+    from igcn_cf_tpu_torch.core.mesh import to_host_replicated
+
+    out = {}
+    for name, t in params.items():
+        if name in SHARDED_ROWS:
+            out[name] = to_host_replicated(t, mesh)
+        elif name in SHARDED_STACKED:
+            out[name] = to_host_replicated(t.detach()[None], mesh)
+        else:
+            out[name] = t.detach().cpu().numpy().copy()
+    return out

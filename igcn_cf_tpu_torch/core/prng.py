@@ -52,3 +52,19 @@ class KeySeq:
 
     def set_state(self, state: torch.Tensor) -> None:
         self._gen.set_state(state)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A u32 seed derived from the u32 ``seed`` and the int ``data``: the
+    port's counterpart of ``jax.random.fold_in(key, data)``, which the JAX
+    package's sharded step uses to give each table shard its own dropout
+    stream (``fold_in(key, t)``). A murmur3 finalizer over ``seed`` xor a
+    golden-ratio multiple of ``data + 1``: distinct ``data`` give
+    unrelated seeds, and the same arguments the same seed on every rank.
+    The stream differs from JAX's."""
+    x = (int(seed) ^ ((int(data) + 1) * 0x9E3779B9)) & 0xFFFFFFFF
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & 0xFFFFFFFF
+    return x ^ (x >> 16)

@@ -67,7 +67,8 @@
 // the gathered ROWS are the needed columns of P^T; the A operand is the
 // transposed shared tile, read with ldmatrix.trans. A row id outside
 // [0, n) and a row past R read as zeros; npad is a multiple of 64, so a
-// warp's 32 columns of the last tile are all inside P or all outside.
+// warp's 32 columns of the last tile are all inside P or all outside (npad
+// may be under n: a column slab of the sharded cache).
 //
 // T2 and T4 are this body at npad = NJ * tkc, with K4's store (T2) or a
 // transposed one (TRANS_OUT, T4): the same sums, each stored at (column,
@@ -268,8 +269,10 @@ gather_bwd_kernel(const bf16* __restrict__ p, const int* __restrict__ rows,
   }
 }
 
+// npad may be under n: a column slab of P (one table shard's window of the
+// sharded cache) has n rows and fewer columns.
 bool bad_shape(int n, int npad, int r_tot, int dpad) {
-  return n < 1 || npad < n || npad % 64 || r_tot < 0 ||
+  return n < 1 || npad < 64 || npad % 64 || r_tot < 0 ||
          dpad < kDTile || dpad % kDTile;
 }
 

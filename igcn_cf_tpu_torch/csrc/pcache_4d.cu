@@ -369,14 +369,16 @@ void igcn_gather_fwd_launch_shape(int r_tot, int npad, int d, int* shape) {
   igcn_fused_fwd_launch_shape(r_tot, npad, d, kK3Tr, shape);
 }
 
-// K3: p (n, npad) bf16, npad a multiple of 64; rows (r_tot,) int32; x0
+// K3: p (n, npad) bf16, npad a multiple of 64 (a column slab of the
+// sharded cache has npad < n); rows (r_tot,) int32; x0
 // (npad, dpad) bf16; part (splits, r_tot, dpad) f32 scratch (may be out
 // when splits is 1); out (r_tot, dpad) f32. splits in [1, npad / 64], the
 // body's range; the wrapper passes igcn_gather_fwd_splits.
 int igcn_gather_fwd(const void* p, const void* rows, const void* x0,
                     void* part, void* out, int n, int npad, int r_tot,
                     int dpad, int splits, void* stream) {
-  if (n < 1 || npad < n || npad % kChunk || r_tot < 0 || dpad < kDTile ||
+  // npad may be under n: a column slab of the sharded cache
+  if (n < 1 || npad < kChunk || npad % kChunk || r_tot < 0 || dpad < kDTile ||
       dpad % kDTile || splits < 1 || splits > npad / kChunk ||
       (splits > 1 && !part))
     return (int)cudaErrorInvalidValue;

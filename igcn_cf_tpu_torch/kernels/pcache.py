@@ -172,10 +172,12 @@ def gather_bwd_plain(p: torch.Tensor, rows: torch.Tensor,
 def _check_gather(p, rows, x, x_rows, what):
     if p.dtype != torch.bfloat16 or p.dim() != 2 or not p.is_contiguous():
         raise ValueError("P must be a contiguous 2-D bf16 tensor")
-    n, npad = p.shape
-    if npad % _TILE or npad < n:
-        raise ValueError(f"P has {npad} columns: need >= {n} rows and a "
-                         f"multiple of {_TILE}")
+    # npad may be under n: a column slab of P (``parallel/pcache.py``)
+    # has n rows and its window's columns; X0 has one row a column
+    npad = p.shape[1]
+    if npad % _TILE or npad < _TILE:
+        raise ValueError(f"P has {npad} columns: need a positive multiple "
+                         f"of {_TILE}")
     for name, t in (("rows", rows), (what, x)):
         if t.device != p.device:
             raise ValueError(f"{name} is on {t.device}, P on {p.device}")

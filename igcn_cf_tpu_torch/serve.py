@@ -16,6 +16,13 @@ and runs ``fused_topk_ids`` (kernel K5 on CUDA) over the whole catalog.
 Catalog shapes are not bucketed: PyTorch and the kernels take any shape, so
 there are no padding ("ghost") users or items, and the representation table
 must have exactly one row per user and item.
+
+Mesh mode (``mesh=``, a ``core/mesh.Mesh``): every rank computes the
+representations on its own device and keeps the users' rows and its block
+of the items along ``table`` (``parallel/eval.ItemBlock``), with the
+block's exclusion words. A request, made on every rank with the same ids,
+runs K5 on each block and merges the ranks' lists
+(``parallel/eval.block_topk``): the same ids as on one device.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from igcn_cf_tpu_torch.kernels.retrieval import (
     pack_exclusion_words_device,
 )
 from igcn_cf_tpu_torch.models.base import get_model
+from igcn_cf_tpu_torch.parallel.eval import ItemBlock, block_topk
 
 
 def _sync(device: torch.device) -> None:
@@ -42,30 +50,37 @@ def _sync(device: torch.device) -> None:
 
 
 class Recommender:
-    def __init__(self, model, params, buffers, *, exclude: str = "train"):
+    def __init__(self, model, params, buffers, *, exclude: str = "train",
+                 mesh=None):
         """``exclude``: which known interactions are never recommended —
         'train' (the evaluation protocol's masking) or 'all'
-        (train+val+test, the usual serving stance)."""
+        (train+val+test, the usual serving stance). ``mesh``: serve with
+        the items split along its ``table`` ranks (the model on the
+        rank's device)."""
         if exclude not in ("train", "all"):
             raise ValueError(f"exclude must be 'train' or 'all', got {exclude!r}")
         self.model = model
         self.params = params
         self.buffers = buffers
         self.exclude = exclude
+        self.mesh = mesh
         self._prepare()
 
     @classmethod
     def from_checkpoint(cls, path: str, model_config: dict, dataset, *,
-                        exclude: str = "train", device="cuda"):
+                        exclude: str = "train", device="cuda", mesh=None):
         """Load a checkpoint over the CURRENT dataset: template maps come from
         the checkpoint, graph structures from the dataset, so users and items
-        unseen at training time are served at once."""
+        unseen at training time are served at once. With a ``mesh`` the
+        model runs on the rank's device."""
+        if mesh is not None:
+            device = mesh.device
         # serving never trains: the propagation cache is training-only, so
         # the multi-GB build is not spent on it
         model = get_model(dict(model_config, prop_cache=False), dataset, device)
         params = model.load(path)
         buffers = model.refresh_buffers(model.init_buffers())
-        return cls(model, params, buffers, exclude=exclude)
+        return cls(model, params, buffers, exclude=exclude, mesh=mesh)
 
     @classmethod
     def from_trainer(cls, trainer, *, exclude: str = "train"):
@@ -111,13 +126,18 @@ class Recommender:
                 f"representation table has {rep.shape[0]} rows for "
                 f"{n_users} users + {n_items} items"
             )
-        nip = pad_to(n_items, LI)
         self._users_rep = rep[:n_users].contiguous()
+        rows, cols = self._exclusion_pairs()
+        if self.mesh is not None:
+            self._block = ItemBlock.from_reps(rep[n_users:], n_items, self.mesh)
+            self._excl_words = self._block.exclusion_words(rows, cols, n_users)
+            _sync(self.device)
+            return
+        nip = pad_to(n_items, LI)
         items_t = torch.zeros((rep.shape[1], nip), dtype=torch.float32,
                               device=self.device)
         items_t[:, :n_items] = rep[n_users:].T
         self._items_t = items_t
-        rows, cols = self._exclusion_pairs()
         self._excl_words = pack_exclusion_words_device(
             rows, cols, n_users, nip, device=self.device
         )
@@ -139,11 +159,18 @@ class Recommender:
         if users.min() < 0 or users.max() >= n_users:
             raise ValueError(f"user ids must be in [0, {n_users})")
         idx = torch.as_tensor(users).to(self.device)
-        banned = self._banned_row
         if banned_items is not None:
             items = np.asarray(banned_items, np.int64).reshape(-1)
             if len(items) and (items.min() < 0 or items.max() >= n_items):
                 raise ValueError(f"banned item ids must be in [0, {n_items})")
+        if self.mesh is not None:
+            rec = block_topk(self._users_rep[idx], self._block,
+                             self._excl_words[idx],
+                             self._block.with_banned(banned_items), k,
+                             self.mesh)
+            return rec.cpu().numpy().astype(np.int64)
+        banned = self._banned_row
+        if banned_items is not None:
             extra = torch.zeros_like(banned)
             extra[0, torch.as_tensor(items).to(self.device)] = NEG
             # minimum, not +: NEG + NEG would overflow f32 to -inf

@@ -1281,3 +1281,81 @@ def test_take_rows_gradient_is_deterministic(cuda):
     xh = x.clone().requires_grad_()
     want = torch.autograd.grad(take_rows(xh, idx), xh, ct)[0]
     torch.testing.assert_close(grads[0].cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# -- the multi-device layer's shapes on the card ----------------------------------
+
+
+@pytest.mark.parametrize("n,width,rps,r,d", [
+    (17709, 12288, 8856, 6144, 64),   # the quarter catalog's slab at table 2
+    (70839, 40960, 35424, 6144, 64),  # the Gowalla slice's slab at table 2
+    (5000, 4096, 1256, 300, 40),      # table 4, d not a multiple of 64
+])
+def test_gather_kernels_on_a_narrow_slab(cuda, n, width, rps, r, d):
+    """K3/K4 on a sharded cache's column slab (fewer columns than rows),
+    against their plain versions; K4 bit-equal over two launches; and
+    cached_prop, which zero-pads X0's rps rows to the slab's width and
+    returns dX0 for those rows."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    p = (torch.rand((n, width), generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    rows = torch.randint(0, n, (r,), generator=g, device=cuda)
+    x0b = torch.randn((width, d), generator=g, device=cuda).to(torch.bfloat16)
+    ctb = torch.randn((r, d), generator=g, device=cuda).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    fwd, bwd = pcache.gather_fwd(p, rows, x0b), pcache.gather_bwd(p, rows, ctb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K3"] == before["K3"] + 1
+    assert _build.LAUNCHES["K4"] == before["K4"] + 1
+    torch.testing.assert_close(fwd, pcache.gather_fwd_plain(p, rows, x0b),
+                               **GATHER_TOL)
+    torch.testing.assert_close(bwd, pcache.gather_bwd_plain(p, rows, ctb),
+                               **GATHER_TOL)
+    assert torch.equal(bwd, pcache.gather_bwd(p, rows, ctb))
+    x0 = torch.randn((rps, d), generator=g, device=cuda, requires_grad=True)
+    ct = torch.randn((r, d), generator=g, device=cuda)
+    y = pcache.cached_prop(p, rows, x0)
+    y.backward(ct)
+    pad = torch.zeros((width, d), device=cuda)
+    pad[:rps] = x0.detach()
+    torch.testing.assert_close(
+        y, pcache.gather_fwd_plain(p, rows, pad.to(torch.bfloat16)),
+        **GATHER_TOL)
+    torch.testing.assert_close(
+        x0.grad, pcache.gather_bwd_plain(p, rows, ct.to(torch.bfloat16))[:rps],
+        **GATHER_TOL)
+
+
+@pytest.mark.parametrize("t", [0, 1])
+def test_fused_topk_on_an_offset_item_block(cuda, t):
+    """K5 over table rank t's item block of the sharded evaluator (offset
+    t * ceil(n_items / 2), the last block short, exclusion words packed for
+    the block, banned items and the padding at NEG) against its plain
+    version; then the merge's scores (``parallel/eval.k5_scores``, K5's
+    FMA order) of the ids it returned against the plain scores."""
+    from igcn_cf_tpu_torch.core.mesh import Mesh
+    from igcn_cf_tpu_torch.parallel.eval import ItemBlock, k5_scores
+
+    g = torch.Generator(device=cuda).manual_seed(t)
+    n_users, n_items = 4096, 10245
+    users = torch.randn((n_users, 64), generator=g, device=cuda)
+    items = torch.randn((n_items, 64), generator=g, device=cuda)
+    mesh = Mesh(1, 2, 0, t, cuda, "nccl", None, None)
+    block = ItemBlock.from_reps(items, n_items, mesh)
+    assert block.offset == t * 5123 and block.n_real == (5123, 5122)[t]
+    rng = np.random.default_rng(t)
+    words = block.exclusion_words(rng.integers(0, n_users, 60000),
+                                  rng.integers(0, n_items, 60000), n_users)
+    banned = block.with_banned(np.arange(0, n_items, 7))
+    before = dict(_build.LAUNCHES)
+    got = retrieval.fused_topk_ids(users, block.items_t, words, banned, k=20)
+    want = retrieval.fused_topk_ids_plain(users, block.items_t, words, banned,
+                                          k=20)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K5"] == before["K5"] + 1
+    scores = chip_smoke.plain_scores(users, block.items_t, words, banned,
+                                     retrieval.LI)
+    chip_smoke.topk_agree(got, want, scores, chip_smoke.TOPK_RTOL)
+    ids = got.long()
+    merged = k5_scores(users, block.items_t, ids) + banned[0][ids]
+    torch.testing.assert_close(merged, torch.gather(users @ block.items_t, 1, ids)
+                               + banned[0][ids], rtol=1e-5, atol=1e-5)

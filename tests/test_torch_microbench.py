@@ -21,6 +21,7 @@ import igcn_cf_tpu.kernels.bitpack as jbp
 import igcn_cf_tpu.kernels.dense_graph as jdg
 from igcn_cf_tpu_torch import tools
 from igcn_cf_tpu_torch.analysis import plots
+from igcn_cf_tpu_torch.core import mesh
 from igcn_cf_tpu_torch.data.sampler import DeviceNegativeSampler
 from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.kernels import _build, bitpack, dense_graph, pcache, retrieval
@@ -30,6 +31,8 @@ from igcn_cf_tpu_torch.models.base import Model, get_model
 from igcn_cf_tpu_torch.models.inmo import IGCN
 from igcn_cf_tpu_torch.models.lightgcn import LightGCN
 from igcn_cf_tpu_torch.models.ngcf import NGCF
+from igcn_cf_tpu_torch.parallel import dense_steps, steps
+from igcn_cf_tpu_torch.parallel import trainer as sharded_trainer
 from igcn_cf_tpu_torch.serve import Recommender
 from igcn_cf_tpu_torch.tools import amazon_scale_check, amazon_serve_check
 from igcn_cf_tpu_torch.tools import microbench_dual as mdual
@@ -324,10 +327,22 @@ def test_tools_refuse_to_time_without_a_card():
     mgather.gather_inputs, parity_run.main, soak_gowalla.main,
     amazon_scale_check.main, amazon_serve_check.main, grid.grid_search,
     grid.tune_preset, population.population_grid_search,
-    plots.template_ratio_sweep,
+    plots.template_ratio_sweep, mesh.make_mesh,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("fn", [
+    steps.build_inmo_sharded_train, dense_steps.build_inmo_dense_sharded_train,
+    sharded_trainer.ShardedIGCNTrainer.__init__,
+], ids=lambda f: f.__qualname__)
+def test_mesh_entry_points_run_on_the_meshs_device(fn):
+    """The sharded builders and trainer take their device from the mesh,
+    whose own default is the card (``make_mesh`` above): no device
+    parameter of theirs can send them to the CPU."""
+    params = inspect.signature(fn).parameters
+    assert "mesh" in params and "device" not in params
 
 
 def test_default_calls_raise_without_a_card(tmp_path):

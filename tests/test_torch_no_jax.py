@@ -78,10 +78,18 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     "igcn_cf_tpu_torch.tools.amazon_scale_check",
                                     "igcn_cf_tpu_torch.tools.amazon_serve_check",
                                     "igcn_cf_tpu_torch.tuning.population",
+                                    # imports core.mesh and parallel.{steps,
+                                    # eval,pcache,sharded,topk}
+                                    "igcn_cf_tpu_torch.parallel.trainer",
+                                    "igcn_cf_tpu_torch.parallel.dense_steps",
+                                    # the multi-device tests' rank functions,
+                                    # which spawned processes import by name
+                                    "torch_mesh_workers",
                                     "igcn_cf_tpu_torch.analysis.plots"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT),
+                                                      str(ROOT / "tests")]))
     out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE, module], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -91,7 +99,8 @@ def test_training_modules_import_without_jax(module):
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(ROOT).as_posix()
     for p in [*ROOT.glob("igcn_cf_tpu_torch/**/*.py"), ROOT / "chip_smoke.py",
-              ROOT / "profile_serve_torch.py", ROOT / "profile_train_torch.py"]
+              ROOT / "profile_serve_torch.py", ROOT / "profile_train_torch.py",
+              ROOT / "tests" / "torch_mesh_workers.py"]
 ))
 def test_source_names_no_jax_import(path):
     text = (ROOT / path).read_text()
