@@ -4,9 +4,10 @@ NGCF training, the command line's flows (run, dropit, dropui), the four
 kernel-microbenchmark tools, the other five model families, the sparse
 graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run,
 tuning (``tune``, population against sequential search) with a point of
-the template-ratio sweep, and the multi-device layer (the sharded trainer,
-evaluator and serving over NCCL and gloo worlds, and ``--mesh``), once on
-one NVIDIA H100.
+the template-ratio sweep, the multi-device layer (the sharded trainer,
+evaluator and serving over NCCL and gloo worlds, and ``--mesh``), and the
+measuring tools (retrieval, eval and serving benchmarks, the sharded
+tools, the dry run and ``tune --trial-mesh``), once on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -182,7 +183,24 @@ Phases, each fatal on failure:
      columns than rows) and K5 on its item block against their plain
      versions. (c) ``dropui --mesh 1x1`` through the command line: the
      JAX package's lines. K3-K7 and K6m/K7m must launch on these paths.
-  14. output -- a JSON line of the kernels (each with its launches, error,
+  14. the measuring tools -- on the one card, at full width, each through
+     its entry point, with the counts set to 0 just before and read just
+     after (subprocesses and ranks adding theirs): (a)
+     ``microbench_retrieval --sweep``: K5 over all 29,858 users, block 0's
+     ids equal to a stable argsort of its masked scores, every S's ids
+     equal to the library choice's; (b) ``bench_eval`` with 2 reps; (c)
+     ``bench_serve`` on sparse and on dense, into a scratch record; (d)
+     ``bench_serve_grown`` (two subprocesses), whose keys survive a
+     ``bench_serve`` re-run; (e) ``amazon_sharded_projection``: K3/K4 on
+     the (144,242 x 20,480) bf16 slab against their plain versions, timed;
+     (f) ``sharded_midscale`` at a world of 1 over NCCL, cut to 6,500 x
+     9,500, its bounds held; (g) ``dryrun_multichip(1)`` over NCCL, then
+     in one world of two gloo ranks on the card ``dryrun_multichip(2)``,
+     (i) ``scaling_harness`` and (h) ``tune --trial-mesh 2`` over a
+     written 2,000 x 3,000 catalog, each trial's epoch losses, val NDCGs
+     and best identical to ``--trial-mesh 1`` in this process. K1-K7,
+     K6m/K7m and K8p must launch.
+  15. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -330,7 +348,8 @@ def log(msg: str) -> None:
 def sync() -> None:
     import torch
 
-    torch.cuda.synchronize()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def gowalla_preset(name):
@@ -3176,6 +3195,328 @@ def phase_mesh(full, smi):
     return launches
 
 
+# -- phase 14: the measuring tools ------------------------------------------------
+
+# the kernels the tools run: K5 in every eval and request, K1/K2 in the
+# dense backend's representations, K3/K4 on the Amazon slab, the midscale
+# cache engine and the dry run's, K6/K7 in their slab builds, K6m/K7m in
+# the dry run's dense-sharded step, K8p in the trial mesh's IGCN steps
+MEASURE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m", "K8p")
+MEASURE_DIR = CACHE_DIR / "measure"
+MEASURE_RDV = CACHE_DIR / "measure_rdv"
+MIDSCALE_CUT = "6500x9500"  # the JAX package's tests/test_parallel.py:365 shape
+# from the readings: sound engines' loss gaps stay under 1e-5 of |loss|
+# and their embeddings within about 1e-2 of the move from init (CPU and
+# card); an engine that propagates nothing reads above 2e-4 and 1
+MIDSCALE_LOSS_REL, MIDSCALE_DEV_OVER_MOVE = 1e-4, 5e-2
+# the trial mesh's catalog: small, written in the reference text format
+TRIAL_CATALOG = dict(n_users=2000, n_items=3000, avg_degree=20, seed=7,
+                     name="trial_mesh_synth")
+
+
+def measure_retrieval(smi):
+    """(a) ``microbench_retrieval --sweep`` at the eval's 29,858 users:
+    block 0 exact, every S's ids equal to the library choice's."""
+    from igcn_cf_tpu_torch.tools import microbench_retrieval
+
+    r = microbench_retrieval.main(["--sweep", "--device", DEVICE])
+    if not r["block0_exact"]:
+        raise AssertionError("microbench_retrieval: block 0 not exact")
+    sweep = ", ".join(f"S {row['splits']} {row['ms']:.4f}" for row in r["sweep"])
+    log(f"# microbench_retrieval ({smi}): pack {r['pack_s']:.3f} s "
+        f"({r['pack_mb']:.1f} MB), K5 {r['ms']:.4f} ms ({r['users_per_s']:,.0f} "
+        f"users/s), launch {r.get('launch')}, block 0 exact; S sweep (ms): {sweep}")
+
+
+def measure_eval(full, smi):
+    """(b) ``bench_eval`` with 2 reps over the smoke's catalog."""
+    from igcn_cf_tpu_torch.tools import bench_eval
+
+    r = bench_eval.measure(full, 2, DEVICE)
+    if not all(np.isfinite(v) for v in [r["rep_ms"], r["recommend_ms"],
+                                        *r["evals_ms"]]):
+        raise AssertionError(f"bench_eval: {r}")
+    log(f"# bench_eval ({smi}): first eval {r['first_eval_s']:.3f} s, evals "
+        + ", ".join(f"{x:.3f}" for x in r["evals_ms"])
+        + f" ms; rep {r['rep_ms']:.3f} ms, recommend {r['recommend_ms']:.3f} "
+        f"ms, calculate_metrics {r['metrics_ms']:.3f} ms")
+
+
+def measure_serve(full, smi):
+    """(c) ``bench_serve`` on sparse and on dense, then (d)
+    ``bench_serve_grown`` (two subprocesses), into a scratch copy of the
+    record: the probe's keys must survive a re-run of bench_serve. Returns
+    the subprocesses' launches."""
+    from igcn_cf_tpu_torch.tools import bench_serve, bench_serve_grown
+
+    out = MEASURE_DIR / "SERVE_TORCH.json"
+    with mock.patch.object(bench_serve, "load_catalog", lambda: full):
+        for backend in ("sparse", "dense"):
+            r = bench_serve.main([backend, "--out", str(out), "--device", DEVICE])
+            req = r["requests"]
+            log(f"# bench_serve {backend} ({smi}): prepare {r['prepare_s']:.3f} "
+                f"s, refresh onto the grown catalog {r['refresh_inductive_s']:.3f}"
+                f" s, steady {r['refresh_steady_s']:.3f} s, IMF steady "
+                f"{r['imf_refresh_steady_s']:.3f} s; requests 512 "
+                f"{req['512']['latency_ms']:.4f} ms, 4096 "
+                f"{req['4096']['latency_ms']:.4f} ms (wall, mean of 10)")
+    g = bench_serve_grown.main(
+        ["--out", str(out), "--catalog",
+         str(CACHE_DIR / f"synth_{N_USERS}x{N_ITEMS}_s{SEED}.npz"),
+         "--ckpt", str(MEASURE_DIR / "serve_grown_ckpt.pkl"), "--device",
+         DEVICE])
+    with mock.patch.object(bench_serve, "load_catalog", lambda: full):
+        bench_serve.main(["sparse", "--out", str(out), "--device", DEVICE])
+    record = json.loads(out.read_text())
+    for key in ("refresh_grown_first_s", "refresh_grown_warm_process_s",
+                "grown_probe", "refresh_steady_s", "requests"):
+        if key not in record:
+            raise AssertionError(f"bench_serve re-run lost {key!r}")
+    log(f"# bench_serve_grown ({smi}): first refresh onto the grown catalog in "
+        f"a fresh process {g['refresh_grown_first_s']:.3f} s (warm process "
+        f"{g['refresh_grown_warm_process_s']:.3f} s, prepare "
+        f"{g['grown_probe']['measure_prepare_s']:.3f} s); the probe's keys kept "
+        "over a bench_serve re-run")
+    return [phase["launches"] for phase in g["phases"]]
+
+
+def measure_projection(smi):
+    """(e) ``amazon_sharded_projection`` at the 5.91 GB slab into a scratch
+    copy of AMAZON_SCALE_TORCH.json (K3/K4 checked against their plain
+    versions on its 6,144 rows)."""
+    import shutil
+
+    from igcn_cf_tpu_torch.tools import amazon_sharded_projection as asp
+
+    out = MEASURE_DIR / "AMAZON_SCALE_TORCH.json"
+    shutil.copy(ROOT / "AMAZON_SCALE_TORCH.json", out)
+    r = asp.main(["--out", str(out), "--device", DEVICE])
+    log(f"# amazon_sharded_projection ({smi}): slab ({r['n']}, {r['width']}) "
+        f"bf16 {r['slab_gb_per_card']:.3f} GB, rows_per_shard "
+        f"{r['rows_per_shard']}; K3 {r['k3_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms, "
+        f"forward + backward {r['pcache_fwd_bwd_ms_measured']:.4f} ms (floor "
+        f"{r['pcache_fwd_bwd_floor_ms']}); vs plain {r['max_abs_err']}; "
+        f"projected step {r['projected_step_ms']:.4f} ms (from the sparse step "
+        f"{r['projected_step_ms_from_sparse_step']:.4f})")
+
+
+def measure_midscale(smi):
+    """(f) ``sharded_midscale`` at a world of 1 over NCCL, cut to
+    MIDSCALE_CUT, the JAX bounds asserted by the tool. Those pass an engine
+    that propagates nothing (5 steps leave the loss near ln 2 and the
+    embeddings near their init), so this also holds the largest loss gap
+    to MIDSCALE_LOSS_REL of |loss| and the engines' final embeddings'
+    distance to MIDSCALE_DEV_OVER_MOVE of the recompute engine's own move
+    from the init: an engine that leaves the embeddings where they started
+    reads 1."""
+    from igcn_cf_tpu_torch.tools import sharded_midscale
+
+    r = sharded_midscale.main(["--shape", MIDSCALE_CUT, "--out",
+                               str(MEASURE_DIR / "midscale.json"),
+                               "--device", DEVICE])
+    log(f"# sharded_midscale (nccl, world 1, cut to {MIDSCALE_CUT}, {smi}): "
+        f"slab {r['stacked_pcache_shape'][1:]} built in {r['pcache_build_s']:.3f} "
+        f"s (the engine {r['build_cache_s']:.3f} s); losses cached vs recompute {r['losses_cached_vs_recompute']}; "
+        f"embeddings within {r['embedding_max_rel_dev']:.3g}; largest loss "
+        f"gap {r['loss_max_rel_gap']:.3g} of |loss|; embedding distance "
+        f"{r['embedding_dev_over_move']:.3g} of the move from init "
+        f"({r['embedding_move_from_init']:.4g})")
+    if not r["loss_max_rel_gap"] < MIDSCALE_LOSS_REL:
+        raise AssertionError(f"midscale loss gap {r['loss_max_rel_gap']} of "
+                             f"|loss|, over {MIDSCALE_LOSS_REL}")
+    if not r["embedding_dev_over_move"] < MIDSCALE_DEV_OVER_MOVE:
+        raise AssertionError(
+            f"midscale embeddings {r['embedding_dev_over_move']} of their "
+            f"move apart, over {MIDSCALE_DEV_OVER_MOVE}")
+
+
+def _trial_mesh_tune(text, argv_tail):
+    """``tune`` on the IGCN preset over ``text`` at one epoch through the
+    command line with ``argv_tail``: (stdout, each group's
+    PopulationTrainer history and best)."""
+    from igcn_cf_tpu_torch.cli import main as cli
+    from igcn_cf_tpu_torch.tuning import population
+
+    groups = []
+
+    class Recorded(population.PopulationTrainer):
+        def train(self, verbose=True):
+            best = super().train(verbose)
+            groups.append({"losses": [h["losses"] for h in self.history],
+                           "ndcgs": [h.get("ndcgs") for h in self.history],
+                           "best": best})
+            return best
+
+    tee = _Tee(sys.stdout)
+    with mock.patch.object(population, "PopulationTrainer", Recorded), \
+            contextlib.redirect_stdout(tee):
+        cli.main(["tune", "--config", str(PRESETS["IGCN"]), "--data-path",
+                  str(text), "--n-epochs", "1", "--device", DEVICE,
+                  *argv_tail])
+    return tee.text(), groups
+
+
+def measure_rank(rank, text, out_dir, device):
+    """One of two gloo ranks on the one card: (g) ``dryrun_multichip(2)``,
+    (i) ``scaling_harness``, then (h) ``tune --trial-mesh 2``, each over
+    the world's gloo group. Each part's launches."""
+    from igcn_cf_tpu_torch import dryrun
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.tools import scaling_harness
+
+    global DEVICE
+    DEVICE = device  # a spawned rank imports this module afresh
+    if device == "cuda":
+        _build.library()
+    result = {"launches": {}}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(2, device)
+    sync()
+    result["dryrun"] = {k: v for k, v in dry.items() if k != "serving_ids"}
+    result["dryrun_s"] = time.perf_counter() - t0
+    result["launches"]["dryrun"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    result["scaling"] = scaling_harness.main(
+        ["--out", str(Path(out_dir) / "scaling_world2.json"), "--device",
+         device])
+    sync()
+    result["launches"]["scaling"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out, groups = _trial_mesh_tune(text, ["--trial-mesh", "2"])
+    sync()
+    result["tune"] = {"out": out, "groups": groups,
+                      "s": time.perf_counter() - t0}
+    result["launches"]["tune"] = dict(_build.LAUNCHES)
+    return result
+
+
+def _same_trials(a, b) -> bool:
+    """Two runs' groups: every epoch's losses and val NDCGs and the best,
+    bit for bit (NaN where a trial stopped, in both)."""
+    if len(a) != len(b):
+        return False
+    for ga, gb in zip(a, b):
+        for key in ("losses", "ndcgs"):
+            for xa, xb in zip(ga[key], gb[key]):
+                if (xa is None) != (xb is None) or (
+                        xa is not None and not np.array_equal(xa, xb,
+                                                              equal_nan=True)):
+                    return False
+        if not np.array_equal(ga["best"], gb["best"]):
+            return False
+    return True
+
+
+def measure_worlds(smi):
+    """(g) ``dryrun_multichip(1)`` over NCCL here; (h) ``tune --trial-mesh
+    1`` here; then one world of two gloo ranks on the card for
+    ``dryrun_multichip(2)``, ``scaling_harness`` and ``tune --trial-mesh
+    2``, its trials' losses and best NDCGs identical to the one-process
+    run's. Returns the launches of this process's parts and of each
+    rank."""
+    import shutil
+
+    import torch
+
+    from igcn_cf_tpu_torch import dryrun
+    from igcn_cf_tpu_torch.core.mesh import spawn_world
+    from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
+    from igcn_cf_tpu_torch.kernels import _build
+
+    start = dict(_build.LAUNCHES)
+    sync()
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(1, DEVICE)
+    sync()
+    log(f"# dryrun_multichip(1) (nccl, {smi}): {time.perf_counter() - t0:.3f} "
+        f"s; " + ", ".join(f"{k} {v:.6f}" for k, v in dry.items()
+                           if k not in ("serving_ids", "mesh")))
+    text = MEASURE_DIR / "trial_catalog"
+    synthetic_interactions(**TRIAL_CATALOG).output(str(text))
+    sync()
+    t0 = time.perf_counter()
+    one_out, one_groups = _trial_mesh_tune(text, ["--trial-mesh", "1"])
+    sync()
+    one_s = time.perf_counter() - t0
+    launches = [_launch_delta(start)]
+    torch.cuda.empty_cache()
+    shutil.rmtree(MEASURE_RDV, ignore_errors=True)
+    MEASURE_RDV.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks = spawn_world(measure_rank, 2, "gloo", str(MEASURE_RDV), str(text),
+                        str(MEASURE_DIR), DEVICE, timeout_s=900)
+    world_s = time.perf_counter() - t0
+    for r in ranks:
+        if not _same_trials(r["tune"]["groups"], one_groups):
+            raise AssertionError("tune --trial-mesh 2 differs from "
+                                 "--trial-mesh 1")
+        launches += list(r["launches"].values())
+    lines = [line for line in ranks[0]["tune"]["out"].splitlines()
+             if line.startswith("NDCG: ")]
+    if lines != [line for line in one_out.splitlines()
+                 if line.startswith("NDCG: ")] or not lines:
+        raise AssertionError("tune --trial-mesh 2 printed other NDCG lines")
+    if any(line.startswith("NDCG: ") for line in ranks[1]["tune"]["out"]
+           .splitlines()):
+        raise AssertionError("rank 1 printed the search's lines")
+    n_trials = sum(len(g["best"]) for g in one_groups)
+    log(f"# tune --trial-mesh 2 (gloo, two ranks on one card) vs --trial-mesh "
+        f"1: {len(one_groups)} groups, {n_trials} trials, every epoch's losses "
+        f"and val NDCGs and each best identical; {ranks[0]['tune']['s']:.3f} s "
+        f"against {one_s:.3f} s")
+    d = ranks[0]["dryrun"]
+    log(f"# dryrun_multichip(2) (gloo, two ranks on one card): "
+        f"{ranks[0]['dryrun_s']:.3f} s; "
+        + ", ".join(f"{k} {v:.6f}" for k, v in d.items() if k != "mesh"))
+    shapes = ranks[0]["scaling"]["shapes"]
+    log("# scaling_harness (gloo, world 2 on one card): " + "; ".join(
+        f"{tag} {v['examples_per_s']:,.0f} ex/s, epoch {v['epoch_s']:.4f} s, "
+        f"eval {v['eval_s']:.4f} s ({v['engine']})" for tag, v in shapes.items())
+        + f"; the world of two {world_s:.1f} s with its start ({smi})")
+    return launches
+
+
+def phase_measure(full, smi):
+    """The measuring tools, each driven through its entry point on the one
+    card: (a) ``microbench_retrieval --sweep``, (b) ``bench_eval``, (c)
+    ``bench_serve`` sparse and dense and (d) ``bench_serve_grown``, (e)
+    ``amazon_sharded_projection``, (f) ``sharded_midscale`` cut, (g)
+    ``dryrun_multichip`` at 1 and 2 ranks, (h) ``tune --trial-mesh 2``
+    against ``--trial-mesh 1``, (i) ``scaling_harness`` at a world of 2.
+    The counts are set to 0 just before and read just after, the
+    subprocesses' and ranks' added. Returns the launches."""
+    import shutil
+
+    import torch
+
+    from igcn_cf_tpu_torch.kernels import _build
+
+    shutil.rmtree(MEASURE_DIR, ignore_errors=True)
+    MEASURE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    measure_retrieval(smi)
+    torch.cuda.empty_cache()
+    measure_eval(full, smi)
+    torch.cuda.empty_cache()
+    others = measure_serve(full, smi)
+    torch.cuda.empty_cache()
+    measure_projection(smi)
+    torch.cuda.empty_cache()
+    measure_midscale(smi)
+    torch.cuda.empty_cache()
+    sync()
+    runs = [dict(_build.LAUNCHES)] + others
+    runs += measure_worlds(smi)
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
+    check_launches(launches, MEASURE_KERNELS, "measuring tools'")
+    log(f"# launches on the measuring tools' paths: {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3236,8 +3577,14 @@ def main() -> int:
     if stray:
         raise AssertionError(f"the tools' kernels launched on the "
                              f"multi-device paths: {stray}")
+    torch.cuda.empty_cache()
+    measure_launches = phase_measure(full, smi)
+    stray = {k: measure_launches[k] for k in TOOL_ONLY if measure_launches[k]}
+    if stray:
+        raise AssertionError(f"the kernel tools' kernels launched on the "
+                             f"measuring tools' paths: {stray}")
     runs = earlier + [tool_launches, zoo_launches, sparse_launches,
-                      tune_launches, mesh_launches]
+                      tune_launches, mesh_launches, measure_launches]
     log(f"# mask launches over the run: K8 (one seed) "
         f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
         f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "

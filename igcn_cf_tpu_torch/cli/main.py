@@ -21,7 +21,13 @@ sharded over a data x table mesh, one process a shard, started by
 run ... --mesh 1x2``); a 1x1 mesh runs in one plain process. The world
 must hold D*T processes. NCCL takes one process a card (on the card;
 gloo with ``--device cpu``).
-Not ported: ``tune --trial-mesh``.
+
+``tune --trial-mesh N`` splits each group's population trials over N
+processes (a data mesh of N ranks, one table rank), started the same way
+(``torchrun --nproc-per-node N -m igcn_cf_tpu_torch.cli.main tune ...
+--trial-mesh N``); ``--trial-mesh 1`` runs in one plain process. Rank 0
+prints. The ranks join the process group that is up (gloo ranks sharing
+one card, say), else the device's (NCCL on the card, gloo on the CPU).
 """
 
 from __future__ import annotations
@@ -205,7 +211,8 @@ def cmd_derive(args):
 def cmd_tune(args):
     """The preset's reference grid (``tuning/grid.py``): the population
     search, the sequential one, or 'auto' (population where a group of
-    grid points shares a model)."""
+    grid points shares a model); ``--trial-mesh N`` splits the
+    population's trials over a data mesh of N ranks."""
     from igcn_cf_tpu_torch.tuning.grid import tune_preset
 
     device = _start(args)
@@ -214,9 +221,18 @@ def cmd_tune(args):
         population = True
     elif args.sequential:
         population = False
-    tune_preset(args.dataset, args.config, data_path=args.data_path,
-                seed=args.seed, population=population, device=device,
-                n_epochs=args.n_epochs)
+    kwargs = dict(data_path=args.data_path, seed=args.seed,
+                  population=population, device=device, n_epochs=args.n_epochs)
+    if not args.trial_mesh:
+        tune_preset(args.dataset, args.config, **kwargs)
+        return
+    from igcn_cf_tpu_torch.core.mesh import make_mesh
+    from igcn_cf_tpu_torch.tools import process_world
+
+    with process_world(device) as (_, backend):
+        mesh = make_mesh(data=args.trial_mesh, table=1, device=device,
+                         backend=backend)
+        tune_preset(args.dataset, args.config, mesh=mesh, **kwargs)
 
 
 def build_parser():
@@ -285,6 +301,9 @@ def build_parser():
                     help="force the population search")
     sp.add_argument("--sequential", action="store_true",
                     help="force the reference-style sequential search")
+    sp.add_argument("--trial-mesh", type=int, default=None, metavar="N",
+                    help="split the population's trials over N processes "
+                         "started by torchrun (1: this process alone)")
     sp.set_defaults(fn=cmd_tune)
     return p
 

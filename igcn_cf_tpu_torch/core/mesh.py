@@ -194,6 +194,12 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
                      dim=dim)
 
 
+def gather_data(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The data ranks' ``x`` concatenated along dim 0 in rank order, on
+    every data rank (no gradient): a trial mesh's per-rank results."""
+    return torch.cat(_gather_list(x.detach(), mesh.data_group, mesh.data))
+
+
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group`` in place; returns ``x``."""
     dist.all_reduce(x, group=group)

@@ -17,6 +17,26 @@ and ``AMAZON_SCALE_TORCH.json`` at the root of the checkout:
     python -m igcn_cf_tpu_torch.tools.amazon_scale_check
     python -m igcn_cf_tpu_torch.tools.amazon_serve_check
 
+the measuring tools (ports of ``tools/microbench_retrieval.py``,
+``tools/bench_eval.py``, ``tools/bench_serve.py`` and
+``tools/bench_serve_grown.py`` with ``tools/serve_grown_phase.py``), the
+benchmark's scenario sources: K5 at the eval's 29,858 users, the eval's
+split, refresh and requests into ``SERVE_TORCH.json``:
+
+    python -m igcn_cf_tpu_torch.tools.microbench_retrieval [--sweep]
+    python -m igcn_cf_tpu_torch.tools.bench_eval [reps]
+    python -m igcn_cf_tpu_torch.tools.bench_serve [sparse|dense]
+    python -m igcn_cf_tpu_torch.tools.bench_serve_grown [sparse|dense]
+
+and the sharded tools (ports of ``tools/scaling_harness.py``,
+``tools/sharded_midscale.py`` and ``tools/amazon_sharded_projection.py``),
+one process a rank under torchrun, into ``SCALING_TORCH.json``,
+``SHARDED_MIDSCALE_TORCH.json`` and ``AMAZON_SCALE_TORCH.json``:
+
+    python -m igcn_cf_tpu_torch.tools.scaling_harness
+    python -m igcn_cf_tpu_torch.tools.sharded_midscale [--shape UxI]
+    python -m igcn_cf_tpu_torch.tools.amazon_sharded_projection
+
 Times are CUDA-event medians (``utils/timing.cuda_ms``), or for calls of a
 few microseconds the mean over calls queued back to back
 (``utils/timing.queued_cuda_ms``). Rooflines come from the card: its name
@@ -27,6 +47,7 @@ clock (``sm_clock``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 from pathlib import Path
@@ -136,3 +157,24 @@ def update_json(path, key: str, record) -> dict:
     results[key] = record
     path.write_text(json.dumps(results, indent=2) + "\n")
     return results
+
+
+@contextlib.contextmanager
+def process_world(device):
+    """(size, backend) of this process group, started for ``device``'s
+    backend (NCCL on the card, gloo on the CPU) where none is up:
+    torchrun's world, else a world of one. A group the caller started
+    (gloo ranks sharing a card, say) is used as it is and left up; one
+    this block starts is torn down when it ends."""
+    import torch.distributed as dist
+
+    from igcn_cf_tpu_torch.core.mesh import default_backend, initialize_distributed
+    from igcn_cf_tpu_torch.kernels import _build
+
+    started = not dist.is_initialized()
+    try:
+        initialize_distributed(default_backend(_build.require_device(device)))
+        yield dist.get_world_size(), dist.get_backend()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

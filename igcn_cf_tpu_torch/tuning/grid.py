@@ -106,7 +106,7 @@ def grid_search(dataset_config, model_config, trainer_config,
 
 def tune_preset(dataset: str, config_index: int, data_path=None, seed: int = 2021,
                 population: str | bool = "auto", device="cuda",
-                n_epochs: Optional[int] = None):
+                n_epochs: Optional[int] = None, mesh=None):
     """Tune one preset's reference grid.
 
     ``population`` selects the search engine: ``True`` forces the population
@@ -114,7 +114,9 @@ def tune_preset(dataset: str, config_index: int, data_path=None, seed: int = 202
     loop, and ``"auto"`` (default) picks population when the model's trainer
     is BPR-family and the grid has more than one combination per group of
     non-traced keys. ``n_epochs`` cuts the preset's epochs (the JAX package
-    always runs the preset's)."""
+    always runs the preset's). ``mesh``: a trial mesh over which the
+    population search splits its trials (the sequential search takes
+    none)."""
     dc, mc, tc = (dict(c) for c in get_config(dataset, config_index, data_path))
     if n_epochs is not None:
         tc["n_epochs"] = n_epochs
@@ -124,7 +126,11 @@ def tune_preset(dataset: str, config_index: int, data_path=None, seed: int = 202
     if population:
         from igcn_cf_tpu_torch.tuning.population import population_grid_search
 
-        return population_grid_search(dc, mc, tc, grid, seed=seed, device=device)
+        return population_grid_search(dc, mc, tc, grid, seed=seed, device=device,
+                                      mesh=mesh)
+    if mesh is not None:
+        raise ValueError(f"a trial mesh splits the population search; "
+                         f"{mc['name']} ({tc['name']}) tunes sequentially")
     return grid_search(dc, mc, tc, grid, seed=seed, device=device)
 
 

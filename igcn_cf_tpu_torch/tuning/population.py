@@ -28,6 +28,18 @@ The JAX package vmaps the trial axis. The port's kernels are
 ``autograd.Function``s over ctypes launches with no vmap rule, so the trials
 run one after another within a step.
 
+A trial mesh (``mesh=``, ``core/mesh.make_mesh(data=N, table=1)``, the
+JAX package's ``--trial-mesh``) splits a group's trials over N ranks: the
+trials, padded to a multiple of N (JAX population.py:146-152 pads with
+copies of trial 0; here a pad slot trains nothing), go in contiguous
+blocks, one a rank. Every rank
+builds the group's trainer from the same seed, so its init and its draws
+are the one-process population's, and trains its block. Each epoch's
+losses and val NDCGs are all-gathered over the ranks and the padding
+dropped, so every rank takes the same patience, early-stop and best-trial
+decisions, and each trial keeps the one-process population's bits. Rank 0
+alone prints.
+
 Deviations (as the JAX package's): no per-trial checkpoint files are
 written, and the per-epoch train-split eval is skipped (it never feeds the
 fitness, the best validation NDCG, reference
@@ -45,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from igcn_cf_tpu_torch.convert import flatten_tree, map_tree
+from igcn_cf_tpu_torch.core.mesh import gather_data
 from igcn_cf_tpu_torch.core.prng import set_seed
 from igcn_cf_tpu_torch.data.dataset import get_dataset
 from igcn_cf_tpu_torch.evaluation.evaluate import evaluate
@@ -109,9 +122,10 @@ def trial_hyper(trainer_config: dict, trials: List[dict]) -> List[dict]:
 
 class PopulationTrainer:
     """Trains the trials of one group on one model and one stream of
-    draws."""
+    draws; with a trial ``mesh``, this rank's block of them."""
 
-    def __init__(self, trainer_config, dataset, model, hyper_grid: List[dict]):
+    def __init__(self, trainer_config, dataset, model, hyper_grid: List[dict],
+                 mesh=None):
         # the group's trainer, the first trial's sequential one: its
         # constructor builds what every trial's builds, in the same order,
         # and its ``sample_step`` draws each step's inputs; its own params
@@ -122,7 +136,18 @@ class PopulationTrainer:
         self.model = model
         self.trials = list(hyper_grid)
         self.n_trials = len(self.trials)
-        self.hyper = trial_hyper(trainer_config, self.trials)
+        self.mesh = mesh
+        ranks = mesh.data if mesh is not None else 1
+        self.n_pad = (-self.n_trials) % ranks
+        padded = self.trials + [self.trials[0]] * self.n_pad
+        block = len(padded) // ranks
+        lo = (mesh.d if mesh is not None else 0) * block
+        # this rank's trials, as indices into the padded list; a pad only
+        # fills its slot in the gathers (its values are dropped), so it
+        # neither trains nor validates
+        self.local = np.arange(lo, lo + block)
+        hyper = trial_hyper(trainer_config, padded)
+        self.hyper = [hyper[i] for i in self.local]
         self.topks = trainer_config["topks"]
         self.n_epochs = trainer_config["n_epochs"]
         self.max_patience = trainer_config.get("max_patience", 50)
@@ -130,22 +155,37 @@ class PopulationTrainer:
         self.test_batch_size = trainer_config.get("test_batch_size", 512)
         init = self.group.params
         self.params = [map_tree(lambda v: v.detach().clone().requires_grad_(), init)
-                       for _ in self.trials]
+                       for _ in self.local]
         self.opts = [OPTIMIZERS[trainer_config["optimizer"]](
             list(flatten_tree(p).values()), h["lr"])
             for p, h in zip(self.params, self.hyper)]
         self._loss = _make_population_loss(trainer_config["name"], model)
         # one entry per epoch: losses, train_s, trial_steps, and val_s and
-        # ndcgs where it validated
+        # ndcgs where it validated (every trial's, on every rank)
         self.history: list = []
+
+    def _live(self, alive: np.ndarray) -> list:
+        """Positions in this rank's block of the trials (not pads) that
+        ``alive`` (every trial's flag) keeps training."""
+        return [t for t, i in enumerate(self.local)
+                if i < self.n_trials and alive[i]]
+
+    def _all_trials(self, local: np.ndarray) -> np.ndarray:
+        """Every trial's value from each rank's values of its block, in
+        trial order, the padding dropped (float64 bits kept)."""
+        if self.mesh is None:
+            return local
+        x = torch.as_tensor(local, dtype=torch.float64, device=self.mesh.device)
+        return gather_data(x, self.mesh).cpu().numpy()[: self.n_trials]
 
     # -- training ------------------------------------------------------------
 
     def train_one_epoch(self, alive: np.ndarray) -> np.ndarray:
-        """One epoch of every alive trial; returns each trial's mean step
-        loss (NaN for a trial that no longer trains)."""
-        step_losses = [[] for _ in self.trials]
-        live = np.flatnonzero(alive)
+        """One epoch of every alive trial of this rank's block; returns
+        each trial's mean step loss (NaN for a trial that no longer
+        trains)."""
+        step_losses = [[] for _ in self.local]
+        live = self._live(alive)
         for _ in range(self.group.steps_per_epoch()):
             inputs = self.group.sample_step()
             for t in live:
@@ -157,8 +197,9 @@ class PopulationTrainer:
                 opt.step()
                 step_losses[t].append(loss.detach())
         self.group.buffers = self.model.epoch_update(self.group.buffers)
-        return np.array([float(torch.stack(s).mean()) if s else np.nan
-                         for s in step_losses])
+        return self._all_trials(np.array(
+            [float(torch.stack(s).mean()) if s else np.nan
+             for s in step_losses]))
 
     # -- evaluation ------------------------------------------------------------
 
@@ -167,17 +208,18 @@ class PopulationTrainer:
         ``evaluate`` (fused retrieval, K5, for the dot-scored models); -inf
         for the others."""
         k0 = self.topks[0]
-        ndcgs = np.full(self.n_trials, -np.inf)
-        for t in np.flatnonzero(alive):
+        ndcgs = np.full(len(self.local), -np.inf)
+        for t in self._live(alive):
             _, metrics = evaluate(self.model, self.params[t], self.group.buffers,
                                   self.dataset, "val", self.topks, None,
                                   self.test_batch_size)
             ndcgs[t] = metrics["NDCG"][k0]
-        return ndcgs
+        return self._all_trials(ndcgs)
 
     # -- main loop (reference trainer.py:57-107, per-trial) -------------------
 
     def train(self, verbose: bool = True) -> np.ndarray:
+        verbose = verbose and (self.mesh is None or self.mesh.rank == 0)
         best = np.full(self.n_trials, -np.inf)
         patience = np.full(self.n_trials, self.max_patience, dtype=np.int64)
         alive = np.ones(self.n_trials, dtype=bool)
@@ -217,13 +259,22 @@ class PopulationTrainer:
 
 def population_grid_search(
     dataset_config, model_config, trainer_config, grid: Dict[str, list],
-    seed: int = 2021, verbose: bool = True, device="cuda",
+    seed: int = 2021, verbose: bool = True, device="cuda", mesh=None,
 ):
     """Drop-in replacement for ``grid_search`` that trains all trials with
     scalar hyperparameters together; grid keys that change the model
     (everything not in ``TRACED_KEYS``) split the grid into groups, one
     model each. Returns the same result dict as ``grid_search``, and each
-    trial's NDCG has the sequential trial's bits."""
+    trial's NDCG has the sequential trial's bits. With a trial ``mesh``
+    (``make_mesh(data=N, table=1)``) the models run on the mesh's device,
+    each group's trials are split over its data ranks, every rank returns
+    the result and rank 0 alone prints."""
+    if mesh is not None:
+        if mesh.table != 1:
+            raise ValueError(f"a trial mesh has one table rank, not {mesh.table}")
+        device = mesh.device
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     all_combos = list(parameter_grid(grid))
     groups: Dict[tuple, List[dict]] = {}
     for combo in all_combos:
@@ -243,7 +294,8 @@ def population_grid_search(
         ]
         if verbose and struct:
             print(f"Group {dict(struct)}: {len(trials)} trials in one program")
-        pop = PopulationTrainer(tc, dataset, model, trials)
+        pop = PopulationTrainer(tc, dataset, model, trials,
+                                **({} if mesh is None else {"mesh": mesh}))
         best = pop.train(verbose=verbose)
         for combo, ndcg in zip(combos, best):
             ndcg_by_combo[tuple(sorted(combo.items()))] = float(ndcg)
@@ -257,12 +309,12 @@ def population_grid_search(
     for combo in all_combos:
         ndcg = ndcg_by_combo[tuple(sorted(combo.items()))]
         trial_records.append({"params": combo, "ndcg": ndcg})
-        print("NDCG: {:.3f}, Parameters: {:s}".format(ndcg, str(combo)))
+        say("NDCG: {:.3f}, Parameters: {:s}".format(ndcg, str(combo)))
         if ndcg > max_ndcg:
             max_ndcg = ndcg
             best_params = combo
-            print("Maximum NDCG!")
-    print(
+            say("Maximum NDCG!")
+    say(
         "Maximum NDCG: {:.3f}, Best Parameters: {:s}".format(max_ndcg, str(best_params))
     )
     return {

@@ -231,7 +231,6 @@ def test_parser_takes_the_jax_flags_it_ports():
     port, jax = _options(build_parser()), _options(jax_build_parser())
     assert set(port) == set(jax)
     for cmd, flags in port.items():
-        want = {k: v for k, v in jax[cmd].items() if k != "--trial-mesh"}
         extra = ({"--device": "cuda"} if cmd in ("run", "dropit", "dropui", "tune")
                  else {})
-        assert flags == {**want, **extra}, cmd
+        assert flags == {**jax[cmd], **extra}, cmd

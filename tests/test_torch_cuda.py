@@ -202,6 +202,31 @@ def test_fused_topk_eval_shape_splits_give_identical_ids(cuda):
         chip_smoke.topk_agree(got[chosen][sl], want, s, chip_smoke.TOPK_RTOL)
 
 
+def test_fused_topk_microbench_retrieval_sweep_gives_the_choice_ids(cuda):
+    """K5 at ``microbench_retrieval``'s shape and inputs (29,858 users,
+    40,981 items, d=64, k=20, the JAX tool's exclusion density, scores
+    exact in f32): every S of the tool's sweep gives the library choice's
+    ids, and the choice's first 512 rows equal the stable argsort of their
+    masked scores."""
+    from igcn_cf_tpu_torch.tools import microbench_retrieval as mr
+
+    nip = bitpack.pad_to(mr.N_ITEMS, retrieval.LI)
+    excl = mr.exclusion_lists(mr.N_USERS, mr.N_ITEMS)
+    words = torch.as_tensor(retrieval.pack_exclusion_words(
+        excl, mr.N_USERS, mr.N_ITEMS, nip)).to(cuda)
+    ur, it = mr.random_operands(mr.N_USERS, nip, mr.D, cuda)
+    banned = torch.zeros((1, nip), device=cuda)
+    banned[0, mr.N_ITEMS:] = retrieval.NEG
+    chosen = retrieval.topk_splits(mr.N_USERS, nip, mr.K, cuda)
+    want = retrieval._fused_topk_cuda(ur, it, words, banned, mr.K,
+                                      retrieval.LI, chosen)
+    for s in mr.SWEEP_SPLITS:
+        got = retrieval._fused_topk_cuda(ur, it, words, banned, mr.K,
+                                         retrieval.LI, s)
+        assert torch.equal(got, want), s
+    assert mr.block0_exact(ur, it, excl, mr.N_ITEMS, mr.K, want)
+
+
 def test_fused_topk_is_deterministic_at_a_request(cuda):
     """A 4,096-user request runs S > 1 ranges whose shared thresholds are
     read in whatever order the blocks run: two launches give the same

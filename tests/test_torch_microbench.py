@@ -19,7 +19,7 @@ import torch
 
 import igcn_cf_tpu.kernels.bitpack as jbp
 import igcn_cf_tpu.kernels.dense_graph as jdg
-from igcn_cf_tpu_torch import tools
+from igcn_cf_tpu_torch import dryrun, tools
 from igcn_cf_tpu_torch.analysis import plots
 from igcn_cf_tpu_torch.core import mesh
 from igcn_cf_tpu_torch.data.sampler import DeviceNegativeSampler
@@ -40,6 +40,16 @@ from igcn_cf_tpu_torch.tools import microbench_gather as mgather
 from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
 from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mtune
 from igcn_cf_tpu_torch.tools import parity_run, soak_gowalla
+from igcn_cf_tpu_torch.tools import (
+    amazon_sharded_projection,
+    bench_eval,
+    bench_serve,
+    bench_serve_grown,
+    microbench_retrieval,
+    scaling_harness,
+    serve_grown_phase,
+    sharded_midscale,
+)
 from igcn_cf_tpu_torch.tuning import grid, population
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -327,7 +337,11 @@ def test_tools_refuse_to_time_without_a_card():
     mgather.gather_inputs, parity_run.main, soak_gowalla.main,
     amazon_scale_check.main, amazon_serve_check.main, grid.grid_search,
     grid.tune_preset, population.population_grid_search,
-    plots.template_ratio_sweep, mesh.make_mesh,
+    plots.template_ratio_sweep, mesh.make_mesh, microbench_retrieval.main,
+    bench_eval.main, bench_serve.main, bench_serve_grown.main,
+    serve_grown_phase.main, scaling_harness.main, sharded_midscale.main,
+    amazon_sharded_projection.main, dryrun.entry, dryrun.dryrun_multichip,
+    dryrun.main,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -85,7 +85,18 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opt
                                     # the multi-device tests' rank functions,
                                     # which spawned processes import by name
                                     "torch_mesh_workers",
-                                    "igcn_cf_tpu_torch.analysis.plots"])
+                                    "igcn_cf_tpu_torch.analysis.plots",
+                                    # the measuring tools, the sharded tools
+                                    # and the dry run
+                                    "igcn_cf_tpu_torch.tools.microbench_retrieval",
+                                    "igcn_cf_tpu_torch.tools.bench_eval",
+                                    "igcn_cf_tpu_torch.tools.bench_serve",
+                                    "igcn_cf_tpu_torch.tools.bench_serve_grown",
+                                    "igcn_cf_tpu_torch.tools.serve_grown_phase",
+                                    "igcn_cf_tpu_torch.tools.scaling_harness",
+                                    "igcn_cf_tpu_torch.tools.sharded_midscale",
+                                    "igcn_cf_tpu_torch.tools.amazon_sharded_projection",
+                                    "igcn_cf_tpu_torch.dryrun"])
 def test_training_modules_import_without_jax(module):
     """Each entry of the training path, imported alone, pulls in no jax."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT),

@@ -404,3 +404,98 @@ def cli_cases(rank, spec):
         except ValueError as e:
             err = str(e)
     return {"stdout": buf.getvalue(), "error": err}
+
+
+class _RecordedPopulation:
+    """Wraps ``tuning.population.PopulationTrainer`` for one search:
+    records each group's history and best, and, with ``init`` and
+    ``draws``, starts every trial from ``init`` (a params tree of numpy
+    arrays) and feeds the steps ``draws`` (a list of step inputs) in place
+    of the group trainer's own."""
+
+    def __init__(self, init=None, draws=None):
+        from igcn_cf_tpu_torch.convert import copy_params_
+        from igcn_cf_tpu_torch.tuning import population
+
+        self.groups = []
+        rec = self
+
+        class Recorded(population.PopulationTrainer):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                if init is not None:
+                    for p in self.params:
+                        copy_params_(p, init)
+                    steps = iter(draws)
+                    self.group.sample_step = lambda: next(steps)
+
+            def train(self, verbose=True):
+                best = super().train(verbose)
+                rec.groups.append({
+                    "losses": [h["losses"] for h in self.history],
+                    "ndcgs": [h["ndcgs"] for h in self.history],
+                    "best": best, "local": self.local.tolist()})
+                return best
+
+        self.cls = Recorded
+
+
+def population_search(spec, mesh=None, init=None, draws=None):
+    """``population_grid_search`` of ``spec`` (dataset config, model and
+    trainer configs, grid) on the CPU, over ``mesh``: (result, the groups'
+    records)."""
+    from unittest import mock
+
+    from igcn_cf_tpu_torch.tuning import population
+
+    torch.set_num_threads(1)
+    rec = _RecordedPopulation(init, draws)
+    with mock.patch.object(population, "PopulationTrainer", rec.cls):
+        result = population.population_grid_search(
+            spec["dc"], spec["model_config"], dict(spec["trainer_config"]),
+            spec["grid"], verbose=False, device="cpu", mesh=mesh)
+    return result, rec.groups
+
+
+def trial_mesh_cases(rank, spec):
+    """The trial mesh in a world of 2 gloo ranks: each search of
+    ``spec['searches']`` over ``make_mesh(2, 1)`` (with the JAX package's
+    init and draws where the search gives them), then ``tune
+    --trial-mesh 2`` through the command line, over this world's group.
+    Returns {search name: (result, groups)} and the command's
+    stdout."""
+    import contextlib
+    import io
+
+    from igcn_cf_tpu_torch.cli.main import main
+    from igcn_cf_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh(2, 1, device="cpu")
+    out = {name: population_search(s, mesh, s.get("init"), s.get("draws"))
+           for name, s in spec["searches"].items()}
+    os.chdir(spec["dir"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(spec["argv"])
+    out["cli"] = buf.getvalue()
+    return out
+
+
+def tools_world_cases(rank, spec):
+    """``dryrun_multichip(4)``, then ``scaling_harness`` and
+    ``sharded_midscale`` at toy size, in a world of 4 gloo ranks; their
+    JSON records land in ``spec['dir']``. Returns the dry run's and the
+    tools' results."""
+    from igcn_cf_tpu_torch.dryrun import dryrun_multichip
+    from igcn_cf_tpu_torch.tools import scaling_harness, sharded_midscale
+
+    torch.set_num_threads(1)
+    out = {"dryrun": dryrun_multichip(4, "cpu")}
+    scaling_harness.CPU_RUN = (spec["scaling_catalog"], spec["scaling_batch"],
+                               spec["scaling_epochs"])
+    out["scaling"] = scaling_harness.main(
+        ["--out", os.path.join(spec["dir"], "scaling.json"), "--device", "cpu"])
+    out["midscale"] = sharded_midscale.main(
+        ["--shape", spec["midscale_shape"], "--steps", str(spec["midscale_steps"]),
+         "--out", os.path.join(spec["dir"], "midscale.json"), "--device", "cpu"])
+    return out
