@@ -5,9 +5,11 @@ kernel-microbenchmark tools, the other five model families, the sparse
 graph branches of IGCN/IMF, LightGCN and NGCF with a cut parity run,
 tuning (``tune``, population against sequential search) with a point of
 the template-ratio sweep, the multi-device layer (the sharded trainer,
-evaluator and serving over NCCL and gloo worlds, and ``--mesh``), and the
+evaluator and serving over NCCL and gloo worlds, and ``--mesh``), the
 measuring tools (retrieval, eval and serving benchmarks, the sharded
-tools, the dry run and ``tune --trial-mesh``), once on one NVIDIA H100.
+tools, the dry run and ``tune --trial-mesh``), and the score-matrix eval's
+ranking and the sparse product's parts (``microbench_topk``,
+``microbench_spmm2``), once on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -127,8 +129,9 @@ Phases, each fatal on failure:
      LightGCN checkpoint; the sparse path), MultiVAE, NeuMF (one epoch a
      stage, all three stages) and ItemKNN (its similarity build on the
      host). Then K5 at IMCGAE's (d=192) and IDCF's eval shapes against its
-     plain version; the score-matrix masked top-k of a NeuMF and an ItemKNN
-     block on the card against the same scores' on the CPU, ids identical;
+     plain version; the score-matrix masked top-k (``mask_topk``,
+     ``exact_topk_ids``) of a NeuMF and an ItemKNN block on the
+     card against the same scores' on the CPU, ids identical;
      IDCF's sparse propagate_mean and its gradient twice, bit-identical,
      and within 1e-5 of the CPU; ItemKNN's build (k = 1,000) at the
      quarter-Gowalla catalog of tools/parity_run.py, timed.
@@ -200,7 +203,20 @@ Phases, each fatal on failure:
      written 2,000 x 3,000 catalog, each trial's epoch losses, val NDCGs
      and best identical to ``--trial-mesh 1`` in this process. K1-K7,
      K6m/K7m and K8p must launch.
-  15. output -- a JSON line of the kernels (each with its launches, error,
+  15. the eval's ranking and the sparse product's parts -- with the counts
+     set to 0 just before and read just after, on the card: (a)
+     ``exact_topk_ids`` (one ``torch.topk`` over the int64 rank keys) on
+     a tied (512, 40,981) block (2,048 levels of multiples of 2^-3, rows of signed
+     zeros, rows of about five finite scores among -inf), ids equal to the
+     card's stable sort of the whole rows and to the CPU's; (b)
+     ``microbench_topk`` through its ``main``: the two-stage ids at chunks
+     512-4,096 and ``exact_topk_ids``'s equal to the flat ones, one eval's
+     ranking (59 blocks) timed for each and for ``torch.topk``; (c) ``microbench_spmm2`` through its
+     ``main`` at the quarter catalog: each part timed, the sorted segment
+     sum of the gathered and scaled rows equal to ``_segment_spmm``'s
+     output, and the cumsum-diff within CUMSUM_ERR_BOUND of it. No kernel
+     may launch.
+  16. output -- a JSON line of the kernels (each with its launches, error,
      ms, plain version's ms, bound from this run's inputs and the data
      sheet, and the library yardstick's ms or null), the nvidia-smi line,
      and last ``{"ok": true, "device": {...}}``.
@@ -2099,10 +2115,10 @@ def zoo_epoch(name, model_cfg, trainer_cfg, full, label="zoo"):
 
 
 def check_score_topk(trainer, name):
-    """The score-matrix path's masked top-k of one block of users on the
-    card against the same scores' top-k on the CPU: ids identical, the
-    lowest id first among equal scores. Logs the block's predict and
-    top-k times."""
+    """The score-matrix path's masked top-k (``mask_topk``,
+    ``exact_topk_ids``) of one block of users on the card against the same
+    scores' top-k on the CPU: ids identical, the lowest id first among
+    equal scores. Logs the block's predict and top-k times."""
     import torch
 
     from igcn_cf_tpu_torch.evaluation.evaluate import exclusion_ids, mask_topk
@@ -2127,8 +2143,8 @@ def check_score_topk(trainer, name):
         topk_ms = cuda_ms(lambda: mask_topk(scores, exclude, None, K))
     log(f"# {name} score-matrix top-k, {len(users)} users x {ds.n_items} items: "
         f"card ids identical to the CPU's on every row ({tied} rows with tied "
-        f"scores in their top {K}); predict {predict_ms:.4f} ms, mask + stable "
-        f"sort {topk_ms:.4f} ms")
+        f"scores in their top {K}); predict {predict_ms:.4f} ms, mask + "
+        f"top-k {topk_ms:.4f} ms")
 
 
 def check_sparse_determinism(trainer):
@@ -3361,11 +3377,15 @@ def measure_rank(rank, text, out_dir, device):
     (i) ``scaling_harness``, then (h) ``tune --trial-mesh 2``, each over
     the world's gloo group. Each part's launches."""
     from igcn_cf_tpu_torch import dryrun
-    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.kernels import _build, pcache
     from igcn_cf_tpu_torch.tools import scaling_harness
 
     global DEVICE
     DEVICE = device  # a spawned rank imports this module afresh
+    # the parent's A/B memo, which holds --trial-mesh 1's verdict: neither
+    # rank measures the engines, so the counts do not hang on which rank
+    # reads the memo after the other wrote it
+    pcache.AB_MEMO_PATH = str(CACHE_DIR / "engine_ab.json")
     if device == "cuda":
         _build.library()
     result = {"launches": {}}
@@ -3475,6 +3495,9 @@ def measure_worlds(smi):
         f"{tag} {v['examples_per_s']:,.0f} ex/s, epoch {v['epoch_s']:.4f} s, "
         f"eval {v['eval_s']:.4f} s ({v['engine']})" for tag, v in shapes.items())
         + f"; the world of two {world_s:.1f} s with its start ({smi})")
+    log("# the world of two's launches by rank and part: " + "; ".join(
+        f"rank {i} {part} { {k: v for k, v in n.items() if v} }"
+        for i, r in enumerate(ranks) for part, n in r["launches"].items()))
     return launches
 
 
@@ -3514,6 +3537,114 @@ def phase_measure(full, smi):
     check_launches(launches, MEASURE_KERNELS, "measuring tools'")
     log(f"# launches on the measuring tools' paths: {launches}; phase "
         f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -- phase 15: the eval's exact top-k and the sparse product's parts ------------
+
+
+# cumsum_diff against the sorted segment sum at microbench_spmm2's shape: an
+# f32 cumulative sum over 409,672 rows of N(0, 1) drifts with no tight
+# bound. The tool on the CPU read 1.62e-3 with the sums added in f32 down
+# each column (its host_f32_cumsum_err, as the card's scan adds; torch's
+# CPU cumsum adds in f64 and read 1.21e-4); this holds the card to 4x that
+CUMSUM_ERR_BOUND = 6.5e-3
+TIED_ROWS = 512  # the score-matrix eval's block of users
+TIED_LEVELS = 2048  # distinct scores of the tied block: ~20 items a level
+
+
+def tied_block():
+    """(TIED_ROWS, N_ITEMS) f32 scores on the card with ties across chunk
+    borders: multiples of 2^-3 from TIED_LEVELS levels; rows 64-127 only
+    +0.0 and -0.0 (``lax.top_k`` ranks +0.0 first); rows 128-191 about
+    five finite scores among -inf."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+
+    def rand(rows):
+        return torch.rand((rows, N_ITEMS), generator=gen, device=DEVICE)
+
+    scores = torch.randint(0, TIED_LEVELS, (TIED_ROWS, N_ITEMS), generator=gen,
+                           device=DEVICE).float() * 0.125
+    scores[64:128] = torch.where(rand(64) < 0.5, -0.0, 0.0)
+    scores[128:192] = torch.where(rand(64) < 5 / N_ITEMS, scores[128:192],
+                                  float("-inf"))
+    return scores
+
+
+def check_tied_topk():
+    """``exact_topk_ids`` on the tied block on the card: ids equal to the
+    stable sort of the whole rows (``microbench_topk.flat_topk``) on the
+    card, and to ``exact_topk_ids`` on the CPU."""
+    import torch
+
+    from igcn_cf_tpu_torch.evaluation.evaluate import exact_topk_ids
+    from igcn_cf_tpu_torch.tools.microbench_topk import flat_topk
+
+    scores = tied_block()
+    got = exact_topk_ids(scores, K)
+    for label, want in (("the card's stable sort", flat_topk(scores, K)),
+                        ("the CPU's exact_topk_ids",
+                         exact_topk_ids(scores.cpu(), K))):
+        if not torch.equal(got.cpu(), want.cpu()):
+            bad = int((got.cpu() != want.cpu()).any(dim=1).nonzero()[0, 0])
+            raise AssertionError(
+                f"exact_topk_ids on the tied block differs from {label} in "
+                f"row {bad}: {got[bad].tolist()} vs {want[bad].tolist()}")
+    top = torch.gather(scores, 1, got.long())
+    tied = int((top[:, 1:] == top[:, :-1]).any(dim=1).sum())
+    log(f"# exact_topk_ids on a tied ({TIED_ROWS}, {N_ITEMS}) block: ids equal "
+        f"to the card's stable sort and to the CPU's ({tied} rows with tied "
+        f"scores in their top {K})")
+
+
+def phase_topk_spmm(smi):
+    """``microbench_topk`` and ``microbench_spmm2`` through their ``main``
+    on the card at the JAX tools' shapes: every chunk's two-stage ids and
+    ``exact_topk_ids``'s equal to the flat ones, and exact on a tied block, the sorted
+    segment sum equal to ``_segment_spmm``'s output and the cumsum-diff
+    within CUMSUM_ERR_BOUND of it. The counts are set to 0 just before and
+    read just after: no kernel may launch. Returns the launches."""
+    from igcn_cf_tpu_torch.kernels import _build
+    from igcn_cf_tpu_torch.tools import microbench_spmm2, microbench_topk
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    check_tied_topk()
+    r = microbench_topk.main(["--device", DEVICE])
+    if not all(r["exact_match"].values()) or not r["exact_topk_match"]:
+        raise AssertionError(f"microbench_topk: ids differ from flat: "
+                             f"two-stage {r['exact_match']}, exact_topk "
+                             f"{r['exact_topk_match']}")
+    ms = r["ms"]
+    log(f"# microbench_topk ({smi}): one eval's ranking ({r['nb']} blocks of "
+        f"({r['b']}, {r['n_items']}), k={r['k']}), ms: flat stable sort "
+        f"{ms['flat']:.4f}; two-stage "
+        + ", ".join(f"chunk {c} {ms[c]:.4f}" for c in microbench_topk.CHUNKS)
+        + f" (every chunk's ids equal to flat); exact_topk {ms['exact_topk']:.4f}"
+        f" (ids equal to flat); torch.topk {ms['torch_topk']:.4f}"
+        f" (ids equal to flat: {r['torch_topk_match']})")
+    r = microbench_spmm2.main(["--device", DEVICE])
+    if not r["segment_equals_spmm"]:
+        raise AssertionError("microbench_spmm2: the sorted segment sum differs "
+                             "from _segment_spmm's output")
+    if not r["cumsum_max_err"] < CUMSUM_ERR_BOUND:
+        raise AssertionError(f"microbench_spmm2: cumsum-diff max error "
+                             f"{r['cumsum_max_err']} over {CUMSUM_ERR_BOUND}")
+    log(f"# microbench_spmm2 ({smi}): nodes {r['nodes']}, nnz {r['nnz']}, "
+        f"{r['gathered_mb']:.0f} MB gathered; ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in r["ms"].items())
+        + f"; gather {r['gather_gb_s']:.1f} GB/s; cumsum-diff max error "
+        f"{r['cumsum_max_err']:.6g} (f32 sums on the host "
+        f"{r['host_f32_cumsum_err']:.6g}; bound {CUMSUM_ERR_BOUND}); the "
+        "sorted segment sum equal to _segment_spmm's output")
+    sync()
+    launches = dict(_build.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"kernels launched in phase 15: "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"# phase 15: no kernel launched; {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3583,8 +3714,11 @@ def main() -> int:
     if stray:
         raise AssertionError(f"the kernel tools' kernels launched on the "
                              f"measuring tools' paths: {stray}")
+    torch.cuda.empty_cache()
+    topk_spmm_launches = phase_topk_spmm(smi)
     runs = earlier + [tool_launches, zoo_launches, sparse_launches,
-                      tune_launches, mesh_launches, measure_launches]
+                      tune_launches, mesh_launches, measure_launches,
+                      topk_spmm_launches]
     log(f"# mask launches over the run: K8 (one seed) "
         f"{sum(run['K8'] for run in runs)}, K8p (two seeds) "
         f"{sum(run['K8p'] for run in runs)}: the IGCN step and the premask "

@@ -15,9 +15,14 @@ their ``dot_scored`` class attribute, as in the JAX package:
   * the others (MultiVAE, NeuMF, ItemKNN) score blocks of
     ``test_batch_size`` users with ``model.predict``; each (B, n_items)
     score block is masked by a scatter of -inf into the excluded and
-    banned columns and ranked by ``mask_topk`` (a stable descending sort:
-    equal scores keep the lowest item id first, as ``lax.top_k`` orders
-    them).
+    banned columns and ranked by ``mask_topk`` through ``exact_topk``, the
+    JAX package's exact top-k. Every item ranks by one int64 key, its
+    score's IEEE total order above the complement of its id, so one
+    ``torch.topk`` gives ``lax.top_k``'s order: equal scores lowest item id
+    first, +0.0 above -0.0. The JAX package takes the top k of each 1,024
+    items first, which on its TPU was faster than one flat ``lax.top_k``;
+    on the H100 one ``torch.topk`` over the keys is the faster form
+    (``tools/microbench_topk``).
 
 The ids stay on the device for the metric reductions.
 """
@@ -120,13 +125,57 @@ def exclusion_ids(ds, split: str, device) -> torch.Tensor:
     return ids
 
 
+_LOW = 0xFFFFFFFF  # a rank key's low word: the complement of the item id
+
+
+def _flip(bits: torch.Tensor) -> torch.Tensor:
+    """Between an f32's int32 bits and an int32 in the float's IEEE total
+    order (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < NaN), the order
+    ``lax.top_k`` ranks by; its own inverse."""
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def total_order(scores: torch.Tensor) -> torch.Tensor:
+    """The int32 keys of ``scores`` (as f32) in their IEEE total order."""
+    return _flip(scores.float().view(torch.int32))
+
+
+def rank_keys(scores: torch.Tensor) -> torch.Tensor:
+    """(B, n) int64 keys: each score's total order in the high word above
+    the complement of its column in the low word. The keys are distinct,
+    so the top k of them are the top k scores in ``lax.top_k``'s order,
+    equal scores lowest column first, whatever order the device's
+    selection leaves ties in."""
+    low = _LOW - torch.arange(scores.shape[1], device=scores.device,
+                              dtype=torch.int64)
+    return torch.add(low, total_order(scores).to(torch.int64), alpha=1 << 32)
+
+
+def decode_keys(keys: torch.Tensor, dtype: torch.dtype):
+    """(values in ``dtype``, int32 columns) of ``rank_keys`` keys."""
+    vals = _flip((keys >> 32).to(torch.int32)).view(torch.float32)
+    return vals.to(dtype), (_LOW - (keys & _LOW)).to(torch.int32)
+
+
+def exact_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values (B, k), int32 ids (B, k)) of the exact top k over the item
+    axis, in ``lax.top_k``'s order (the JAX package's ``exact_topk``): one
+    ``torch.topk`` over ``rank_keys``. Needs k <= n."""
+    top = torch.topk(rank_keys(scores), k, dim=1).values
+    return decode_keys(top, scores.dtype)
+
+
+def exact_topk_ids(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The int32 ids of ``exact_topk``."""
+    return exact_topk(scores, k)[1]
+
+
 def mask_topk(scores: torch.Tensor, exclude: torch.Tensor,
               banned: Optional[torch.Tensor], k: int) -> torch.Tensor:
     """scores (B, n_items); exclude (B, W) item ids padded with n_items;
     banned (n_items,) bool or None. The (B, k) int32 ids of the top k
-    scores after -inf is scattered into the excluded and banned columns;
-    equal scores rank the lowest item id first (the JAX package's
-    ``mask_topk_core`` and ``lax.top_k``)."""
+    scores after -inf is scattered into the excluded and banned columns,
+    ranked by ``exact_topk_ids`` (the JAX package's ``mask_topk_core``)."""
     b, n_items = scores.shape
     ext = torch.cat([scores.float(), scores.new_zeros((b, 1), dtype=torch.float32)],
                     dim=1)
@@ -134,8 +183,7 @@ def mask_topk(scores: torch.Tensor, exclude: torch.Tensor,
     masked = ext[:, :n_items]
     if banned is not None:
         masked = masked.masked_fill(banned[None, :], float("-inf"))
-    order = torch.sort(masked, dim=1, descending=True, stable=True).indices
-    return order[:, :k].to(torch.int32)
+    return exact_topk_ids(masked, k)
 
 
 @torch.no_grad()

@@ -4,9 +4,11 @@ all-gathered along ``table`` and merged (port of
 
 Each table rank holds a contiguous block of the items. The merged list is
 the exact global top-k by (score descending, item id ascending), the order
-of ``lax.top_k`` and of the port's K5: the gathered lists are concatenated
-in rank order, each already sorted by (score, id), so a stable sort by
-score alone breaks ties by the lower global id.
+of ``lax.top_k`` and of the port's K5. Both top-k's rank through
+``evaluation/evaluate.exact_topk``, the score's IEEE total order (+0.0
+above -0.0) and then the column: the gathered lists are concatenated in
+rank order, each already in that order, so the lower position among equal
+scores is the lower global id.
 """
 
 from __future__ import annotations
@@ -16,20 +18,21 @@ from typing import Optional
 import torch
 
 from igcn_cf_tpu_torch.core.mesh import Mesh, gather_rows
+from igcn_cf_tpu_torch.evaluation.evaluate import exact_topk
 
 
 def local_topk_with_global_ids(scores_local: torch.Tensor, offset: int,
                                k: int):
     """(values, global ids) of the top k of each row of a local score block
     whose column 0 is item ``offset``; equal scores keep the lower id."""
-    order = torch.sort(scores_local, dim=1, descending=True, stable=True)
-    return order.values[:, :k], order.indices[:, :k] + offset
+    vals, ids = exact_topk(scores_local, k)
+    return vals, ids.long() + offset
 
 
 def merge_topk(vals_all: torch.Tensor, ids_all: torch.Tensor, k: int):
     """(B, T*k) rank-ordered local lists -> the global (values, ids) top k."""
-    order = torch.sort(vals_all, dim=1, descending=True, stable=True).indices[:, :k]
-    return torch.gather(vals_all, 1, order), torch.gather(ids_all, 1, order)
+    vals, pos = exact_topk(vals_all, k)
+    return vals, torch.gather(ids_all, 1, pos.long())
 
 
 def gather_merge(vals: torch.Tensor, ids: torch.Tensor, k: int, mesh: Mesh):

@@ -28,6 +28,13 @@ split, refresh and requests into ``SERVE_TORCH.json``:
     python -m igcn_cf_tpu_torch.tools.bench_serve [sparse|dense]
     python -m igcn_cf_tpu_torch.tools.bench_serve_grown [sparse|dense]
 
+the score-matrix eval's ranking, flat against the two-stage top-k, and
+the sparse product's parts (ports of ``tools/microbench_topk.py`` and
+``tools/microbench_spmm2.py``):
+
+    python -m igcn_cf_tpu_torch.tools.microbench_topk
+    python -m igcn_cf_tpu_torch.tools.microbench_spmm2
+
 and the sharded tools (ports of ``tools/scaling_harness.py``,
 ``tools/sharded_midscale.py`` and ``tools/amazon_sharded_projection.py``),
 one process a rank under torchrun, into ``SCALING_TORCH.json``,

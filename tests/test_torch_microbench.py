@@ -46,6 +46,8 @@ from igcn_cf_tpu_torch.tools import (
     bench_serve,
     bench_serve_grown,
     microbench_retrieval,
+    microbench_spmm2,
+    microbench_topk,
     scaling_harness,
     serve_grown_phase,
     sharded_midscale,
@@ -341,7 +343,7 @@ def test_tools_refuse_to_time_without_a_card():
     bench_eval.main, bench_serve.main, bench_serve_grown.main,
     serve_grown_phase.main, scaling_harness.main, sharded_midscale.main,
     amazon_sharded_projection.main, dryrun.entry, dryrun.dryrun_multichip,
-    dryrun.main,
+    dryrun.main, microbench_topk.main, microbench_spmm2.main,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -276,6 +276,42 @@ def test_sharded_topk_ids_equal_jax(port, jref, mesh):
         np.testing.assert_array_equal(r["topk"], jref["topk"])
 
 
+@pytest.mark.parametrize("case", ["ties", "signed_zeros"])
+def test_local_topk_and_merge_match_jax(case):
+    """Each table rank's top-k and the merge of the gathered lists against
+    JAX ``parallel/topk``'s ``lax.top_k``, values and ids bit for bit, on
+    scores with ties across the ranks' blocks and on rows of +0.0 and -0.0
+    (``lax.top_k`` ranks +0.0 first)."""
+    from igcn_cf_tpu.parallel import topk as jtopk
+    from igcn_cf_tpu_torch.parallel import topk as ptopk
+
+    rng = np.random.default_rng(5)
+    t_ranks, n, k = 2, 48, 10
+    x = np.round(rng.normal(size=(8, t_ranks * n)) * 4) / 4
+    if case == "signed_zeros":
+        zeros = np.where(rng.random(x.shape) < 0.5, -0.0, 0.0)
+        x = np.where(rng.random(x.shape) < 0.05, x, zeros)
+    x = x.astype(np.float32)
+
+    def same(got, want):
+        want = [np.asarray(w) for w in want]
+        np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                      want[0].view(np.int32))
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+    jlists, plists = [], []
+    for t in range(t_ranks):
+        block = x[:, t * n:(t + 1) * n]
+        jlists.append(jtopk.local_topk_with_global_ids(jnp.asarray(block),
+                                                       t * n, k))
+        plists.append(ptopk.local_topk_with_global_ids(torch.as_tensor(block),
+                                                       t * n, k))
+        same(plists[-1], jlists[-1])
+    same(ptopk.merge_topk(*(torch.cat(z, dim=1) for z in zip(*plists)), k),
+         jtopk.merge_topk(*(jnp.concatenate(z, axis=1) for z in zip(*jlists)),
+                          k))
+
+
 @pytest.mark.parametrize("mesh", MESHES)
 def test_sharded_recommend_equals_jax_and_one_device(port, jref, mesh):
     """Per-shard K5 (its plain version here) + the merge: the same ids as
