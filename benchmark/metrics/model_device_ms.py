@@ -1,0 +1,11 @@
+"""Device milliseconds per training step of the model: launched inside the
+loss's call (the forward) or inside ``train_step`` outside the loss and the
+optimizer (the backward)."""
+
+
+def read(r):
+    if r.trace is None or not r.work.get("steps"):
+        return None
+    t = r.trace.by_range
+    return 1e3 * (t.get("loss", 0.0) + t.get("train_step", 0.0)) \
+        / r.work["steps"]
