@@ -1,0 +1,19 @@
+"""Host milliseconds per training step in autograd's backward, from inside
+the program: the self time of its ``train.backward`` spans (``backward()``,
+less the kernel launches' spans inside it, those on autograd's device
+thread included) over the traced steps. None for a program without spans,
+or where the spans recorded another number of steps than the window
+ran."""
+
+
+def read(r):
+    try:
+        from igcn_cf_tpu_torch.utils import spans
+    except ImportError:
+        return None
+    got = spans.snapshot()["spans"]
+    steps = r.work.get("steps")
+    if (not steps or got.get("train.step", {}).get("count") != steps
+            or "train.backward" not in got):
+        return None
+    return got["train.backward"]["self_ms"] / steps

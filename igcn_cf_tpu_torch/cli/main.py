@@ -39,6 +39,7 @@ import re
 
 from igcn_cf_tpu_torch.configs import get_config
 from igcn_cf_tpu_torch.core.prng import set_seed
+from igcn_cf_tpu_torch.utils import spans
 from igcn_cf_tpu_torch.utils.logging import MetricsWriter
 
 
@@ -65,25 +66,6 @@ def _start(args):
 
     set_seed(args.seed)
     return _build.require_device(args.device)
-
-
-@contextlib.contextmanager
-def _profiled(trace_dir):
-    """A torch.profiler trace of the block (host and, on a card, device
-    activity) written to ``trace_dir/trace.json``; nothing when None."""
-    if trace_dir is None:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
 def _writer(args):
@@ -138,7 +120,7 @@ def cmd_run(args):
         return
     if args.resume:
         tc["state_interval"] = tc.get("state_interval", 5)
-    with _writer(args) as writer, _profiled(args.profile):
+    with _writer(args) as writer, spans.profiled(args.profile):
         train_eval_transductive(dc, mc, tc, writer=writer, resume=args.resume,
                                 device=device)
 
@@ -249,7 +231,9 @@ def build_parser():
         sp.add_argument("--log-dir", default=None)
         sp.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler trace of the run to "
-                             "DIR/trace.json")
+                             "DIR/trace.json and the program's spans (count, "
+                             "total and self ms by name) and kernel launches "
+                             "to DIR/spans.json")
         sp.add_argument("--debug-nans", action="store_true",
                         help="turn on torch.autograd's anomaly detection: a "
                              "backward pass that makes a NaN raises. Weaker "

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from igcn_cf_tpu_torch.utils import spans
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
@@ -32,8 +34,9 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-# Launches of each kernel, counted by its wrapper right after a launch that
-# returned no error. A run resets them to show which kernels it went through.
+# Launches of each kernel, counted by its wrapper (``counted``) when the
+# block around a launch exits with no error. A run resets them to show which
+# kernels it went through.
 # K1m/K2m and K6m/K7m are the masked variants of K1/K2 and K6/K7 (edge
 # dropout inside the kernel), K8p is K8's two-seed pair; T1/T2 are the 4-D
 # gather kernels of ``tools/microbench_pcache``, T3/T4 their tuning
@@ -107,6 +110,48 @@ def splits(entry: str, device: int, *shape: int) -> int:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class _Count:
+    """Counts a launch of ``kid`` when the block exits cleanly."""
+
+    __slots__ = ("kid",)
+
+    def __init__(self, kid: str):
+        self.kid = kid
+
+    def __enter__(self):
+        pass
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            LAUNCHES[self.kid] += 1
+
+
+class _CountedSpan(spans.Span):
+    __slots__ = ("kid",)
+
+    def __init__(self, kid: str):
+        super().__init__("kernel." + kid)
+        self.kid = kid
+
+    def __exit__(self, exc_type, exc, tb):
+        super().__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            LAUNCHES[self.kid] += 1
+
+
+_COUNTS = {kid: _Count(kid) for kid in LAUNCHES}
+
+
+def counted(kid: str):
+    """A launch wrapper's block, from its entry to the launch's return:
+    counts the launch in ``LAUNCHES[kid]`` when the block exits with no
+    error and, while spans are on, records it as span ``kernel.<kid>``
+    (the wrapper's host cost of one launch)."""
+    if spans.active():
+        return _CountedSpan(kid)
+    return _COUNTS[kid]
 
 
 def require_device(device) -> torch.device:

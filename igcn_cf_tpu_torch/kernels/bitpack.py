@@ -185,12 +185,12 @@ def _t1_launch(entry: str, kid: str, wp: torch.Tensor, xt: torch.Tensor,
                mask) -> torch.Tensor:
     """Y (m, d) = B @ X through a t1-body entry, X given as (d, K); ``mask``
     is () or (seed, thr)."""
-    m, kw = wp.shape
-    d = xt.shape[0]
-    x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
-    y = torch.empty((m, x.shape[1]), dtype=torch.float32, device=wp.device)
-    _build.launch(entry, wp, x, y, m, kw, x.shape[1], *mask)
-    _build.LAUNCHES[kid] += 1
+    with _build.counted(kid):
+        m, kw = wp.shape
+        d = xt.shape[0]
+        x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
+        y = torch.empty((m, x.shape[1]), dtype=torch.float32, device=wp.device)
+        _build.launch(entry, wp, x, y, m, kw, x.shape[1], *mask)
     return y if x.shape[1] == d else y[:, :d]
 
 
@@ -205,17 +205,17 @@ def _t2_launch(entry: str, kid: str, wp: torch.Tensor, xt: torch.Tensor,
     """Y (K, d) = B^T @ X through a t2-body entry, X given as (d, m);
     ``mask`` is () or (seed, thr). ``splits`` (row chunks) defaults to
     ``t2_splits``; another value is for timing the choice."""
-    m, kw = wp.shape
-    d = xt.shape[0]
-    x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
-    dp = x.shape[1]
-    splits = t2_splits(m, kw, d) if splits is None else splits
-    y = torch.empty((kw * 32, dp), dtype=torch.float32, device=wp.device)
-    part = y if splits == 1 else torch.empty((splits, kw * 32, dp),
-                                             dtype=torch.float32,
-                                             device=wp.device)
-    _build.launch(entry, wp, x, part, y, m, kw, dp, splits, *mask)
-    _build.LAUNCHES[kid] += 1
+    with _build.counted(kid):
+        m, kw = wp.shape
+        d = xt.shape[0]
+        x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
+        dp = x.shape[1]
+        splits = t2_splits(m, kw, d) if splits is None else splits
+        y = torch.empty((kw * 32, dp), dtype=torch.float32, device=wp.device)
+        part = y if splits == 1 else torch.empty((splits, kw * 32, dp),
+                                                 dtype=torch.float32,
+                                                 device=wp.device)
+        _build.launch(entry, wp, x, part, y, m, kw, dp, splits, *mask)
     return y if dp == d else y[:, :d]
 
 
@@ -522,11 +522,11 @@ def mask_words(wp: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     seed = _check_seed(seed)
     if not _build.on_cuda(wp):
         return mask_words_plain(wp, seed, p)
-    wp = _mask_operand(wp)
-    out = torch.empty_like(wp)
-    _build.launch("igcn_mask_words", wp, out, wp.shape[0], wp.shape[1], seed,
-                  _threshold_u8(p))
-    _build.LAUNCHES["K8"] += 1
+    with _build.counted("K8"):
+        wp = _mask_operand(wp)
+        out = torch.empty_like(wp)
+        _build.launch("igcn_mask_words", wp, out, wp.shape[0], wp.shape[1],
+                      seed, _threshold_u8(p))
     return out
 
 
@@ -539,11 +539,11 @@ def mask_words_pair(wp: torch.Tensor, seed_a: int, seed_b: int,
     seed_a, seed_b = _check_seed(seed_a), _check_seed(seed_b)
     if not _build.on_cuda(wp):
         return mask_words_pair_plain(wp, seed_a, seed_b, p)
-    wp = _mask_operand(wp)
-    out_a, out_b = torch.empty_like(wp), torch.empty_like(wp)
-    _build.launch("igcn_mask_words_pair", wp, out_a, out_b, wp.shape[0],
-                  wp.shape[1], seed_a, seed_b, _threshold_u8(p))
-    _build.LAUNCHES["K8p"] += 1
+    with _build.counted("K8p"):
+        wp = _mask_operand(wp)
+        out_a, out_b = torch.empty_like(wp), torch.empty_like(wp)
+        _build.launch("igcn_mask_words_pair", wp, out_a, out_b, wp.shape[0],
+                      wp.shape[1], seed_a, seed_b, _threshold_u8(p))
     return out_a, out_b
 
 

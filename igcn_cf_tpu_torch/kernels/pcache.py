@@ -234,33 +234,33 @@ def gather_launch_shape(kid: str, r: int, npad: int, d: int) -> dict:
 
 
 def _gather_fwd_cuda(p, rows, x0b):
-    _check_gather(p, rows, x0b, p.shape[1], "x0")
-    n, npad = p.shape
-    r, d = rows.shape[0], x0b.shape[1]
-    xb = _d_padded(x0b)
-    dpad = xb.shape[1]
-    splits = _build.splits("igcn_gather_fwd_splits", p.device.index, r, npad,
-                           dpad)
-    out = torch.empty((r, dpad), dtype=torch.float32, device=p.device)
-    part = out if splits == 1 else torch.empty((splits, r, dpad),
-                                               dtype=torch.float32,
-                                               device=p.device)
-    _build.launch("igcn_gather_fwd", p, _rows32(rows), xb, part, out, n, npad,
-                  r, dpad, splits)
-    _build.LAUNCHES["K3"] += 1
+    with _build.counted("K3"):
+        _check_gather(p, rows, x0b, p.shape[1], "x0")
+        n, npad = p.shape
+        r, d = rows.shape[0], x0b.shape[1]
+        xb = _d_padded(x0b)
+        dpad = xb.shape[1]
+        splits = _build.splits("igcn_gather_fwd_splits", p.device.index, r,
+                               npad, dpad)
+        out = torch.empty((r, dpad), dtype=torch.float32, device=p.device)
+        part = out if splits == 1 else torch.empty((splits, r, dpad),
+                                                   dtype=torch.float32,
+                                                   device=p.device)
+        _build.launch("igcn_gather_fwd", p, _rows32(rows), xb, part, out, n,
+                      npad, r, dpad, splits)
     return out if dpad == d else out[:, :d]
 
 
 def _gather_bwd_cuda(p, rows, ctb):
-    _check_gather(p, rows, ctb, rows.shape[0], "ct")
-    n, npad = p.shape
-    r, d = ctb.shape
-    cb = _d_padded(ctb)
-    dpad = cb.shape[1]
-    dx = torch.empty((npad, dpad), dtype=torch.float32, device=p.device)
-    _build.launch("igcn_gather_bwd", p, _rows32(rows), cb, dx, n, npad, r,
-                  dpad)
-    _build.LAUNCHES["K4"] += 1
+    with _build.counted("K4"):
+        _check_gather(p, rows, ctb, rows.shape[0], "ct")
+        n, npad = p.shape
+        r, d = ctb.shape
+        cb = _d_padded(ctb)
+        dpad = cb.shape[1]
+        dx = torch.empty((npad, dpad), dtype=torch.float32, device=p.device)
+        _build.launch("igcn_gather_bwd", p, _rows32(rows), cb, dx, n, npad, r,
+                      dpad)
     return dx if dpad == d else dx[:, :d]
 
 

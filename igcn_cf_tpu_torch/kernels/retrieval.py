@@ -158,35 +158,36 @@ def _fused_topk_cuda(users_rep, items_t, excl_words, banned_row, k, li,
                      splits=None):
     """K5 on CUDA operands; ``splits`` (S) defaults to the library's choice
     and is given only to compare choices."""
-    n, d, nip = _check_topk_args(users_rep, items_t, excl_words, banned_row,
-                                 k, li)
-    if li % TOPK_ITEM_TILE:
-        raise ValueError(f"K5 takes li a multiple of {TOPK_ITEM_TILE}, got "
-                         f"{li}")
-    for name, t, dtype in (("users_rep", users_rep, torch.float32),
-                           ("items_t", items_t, torch.float32),
-                           ("excl_words", excl_words, torch.int32),
-                           ("banned_row", banned_row, torch.float32)):
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype}, got "
-                             f"{t.dtype}{'' if t.is_contiguous() else ' (strided)'}")
-        if t.data_ptr() % 16 and name != "users_rep":
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-    dev = users_rep.device
-    if splits is None:
-        splits = topk_splits(n, nip, k, dev)
-    if not 1 <= splits <= nip // TOPK_ITEM_TILE:
-        raise ValueError(f"splits={splits} must be in [1, "
-                         f"{nip // TOPK_ITEM_TILE}]")
-    out = torch.empty((n, k), dtype=torch.int32, device=dev)
-    # the library sizes and carves the scratch (users transposed, S sorted
-    # lists, thresholds)
-    scratch = torch.empty(
-        _build.library().igcn_fused_topk_scratch_words(n, d, k, splits),
-        dtype=torch.int32, device=dev)
-    _build.launch("igcn_fused_topk", users_rep, items_t, excl_words,
-                  banned_row, scratch, out, n, nip, d, k, li, splits)
-    _build.LAUNCHES["K5"] += 1
+    with _build.counted("K5"):
+        n, d, nip = _check_topk_args(users_rep, items_t, excl_words,
+                                     banned_row, k, li)
+        if li % TOPK_ITEM_TILE:
+            raise ValueError(f"K5 takes li a multiple of {TOPK_ITEM_TILE}, "
+                             f"got {li}")
+        for name, t, dtype in (("users_rep", users_rep, torch.float32),
+                               ("items_t", items_t, torch.float32),
+                               ("excl_words", excl_words, torch.int32),
+                               ("banned_row", banned_row, torch.float32)):
+            if t.dtype != dtype or not t.is_contiguous():
+                strided = "" if t.is_contiguous() else " (strided)"
+                raise ValueError(f"{name} must be contiguous {dtype}, got "
+                                 f"{t.dtype}{strided}")
+            if t.data_ptr() % 16 and name != "users_rep":
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+        dev = users_rep.device
+        if splits is None:
+            splits = topk_splits(n, nip, k, dev)
+        if not 1 <= splits <= nip // TOPK_ITEM_TILE:
+            raise ValueError(f"splits={splits} must be in [1, "
+                             f"{nip // TOPK_ITEM_TILE}]")
+        out = torch.empty((n, k), dtype=torch.int32, device=dev)
+        # the library sizes and carves the scratch (users transposed, S
+        # sorted lists, thresholds)
+        scratch = torch.empty(
+            _build.library().igcn_fused_topk_scratch_words(n, d, k, splits),
+            dtype=torch.int32, device=dev)
+        _build.launch("igcn_fused_topk", users_rep, items_t, excl_words,
+                      banned_row, scratch, out, n, nip, d, k, li, splits)
     return out
 
 

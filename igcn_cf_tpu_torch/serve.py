@@ -42,6 +42,7 @@ from igcn_cf_tpu_torch.kernels.retrieval import (
 )
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.parallel.eval import ItemBlock, block_topk
+from igcn_cf_tpu_torch.utils.spans import span
 
 
 def _sync(device: torch.device) -> None:
@@ -152,29 +153,36 @@ class Recommender:
                   banned_items: Optional[np.ndarray] = None) -> np.ndarray:
         """Top-k item ids (n, k) int64 for a batch of users, never any of
         their excluded interactions nor ``banned_items``."""
-        users = np.asarray(user_ids, dtype=np.int64).reshape(-1)
-        n_users, n_items = self.model.n_users, self.model.n_items
-        if len(users) == 0:
-            return np.zeros((0, k), dtype=np.int64)
-        if users.min() < 0 or users.max() >= n_users:
-            raise ValueError(f"user ids must be in [0, {n_users})")
-        idx = torch.as_tensor(users).to(self.device)
-        if banned_items is not None:
-            items = np.asarray(banned_items, np.int64).reshape(-1)
-            if len(items) and (items.min() < 0 or items.max() >= n_items):
-                raise ValueError(f"banned item ids must be in [0, {n_items})")
-        if self.mesh is not None:
-            rec = block_topk(self._users_rep[idx], self._block,
-                             self._excl_words[idx],
-                             self._block.with_banned(banned_items), k,
-                             self.mesh)
-            return rec.cpu().numpy().astype(np.int64)
-        banned = self._banned_row
-        if banned_items is not None:
-            extra = torch.zeros_like(banned)
-            extra[0, torch.as_tensor(items).to(self.device)] = NEG
-            # minimum, not +: NEG + NEG would overflow f32 to -inf
-            banned = torch.minimum(banned, extra)
-        rec = fused_topk_ids(self._users_rep[idx], self._items_t,
-                             self._excl_words[idx], banned, k=k)
-        return rec.cpu().numpy().astype(np.int64)
+        with span("serve.recommend"):
+            users = np.asarray(user_ids, dtype=np.int64).reshape(-1)
+            n_users, n_items = self.model.n_users, self.model.n_items
+            if len(users) == 0:
+                return np.zeros((0, k), dtype=np.int64)
+            with span("serve.prepare"):
+                if users.min() < 0 or users.max() >= n_users:
+                    raise ValueError(f"user ids must be in [0, {n_users})")
+                idx = torch.as_tensor(users).to(self.device)
+                if banned_items is not None:
+                    items = np.asarray(banned_items, np.int64).reshape(-1)
+                    if len(items) and (items.min() < 0
+                                       or items.max() >= n_items):
+                        raise ValueError(
+                            f"banned item ids must be in [0, {n_items})")
+            with span("serve.launch"):
+                if self.mesh is not None:
+                    rec = block_topk(self._users_rep[idx], self._block,
+                                     self._excl_words[idx],
+                                     self._block.with_banned(banned_items), k,
+                                     self.mesh)
+                else:
+                    banned = self._banned_row
+                    if banned_items is not None:
+                        extra = torch.zeros_like(banned)
+                        extra[0, torch.as_tensor(items).to(self.device)] = NEG
+                        # minimum, not +: NEG + NEG would overflow f32 to -inf
+                        banned = torch.minimum(banned, extra)
+                    rec = fused_topk_ids(self._users_rep[idx], self._items_t,
+                                         self._excl_words[idx], banned, k=k)
+            with span("serve.fetch"):  # waits for the device's work
+                rec = rec.cpu()
+            return rec.numpy().astype(np.int64)

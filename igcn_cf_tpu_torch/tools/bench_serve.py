@@ -2,7 +2,7 @@
 ``tools/bench_serve.py``).
 
     python -m igcn_cf_tpu_torch.tools.bench_serve [sparse|dense]
-        [--out PATH] [--device cuda|cpu]
+        [--out PATH] [--device cuda|cpu] [--profile DIR]
 
 The two numbers of the INMO serving story, for IGCN (d=64, 3 layers,
 dropout 0.3, feature_ratio 1.0, no P; ``graph_backend`` from the first
@@ -24,7 +24,10 @@ Then IMF (``n_layers=0``) at the full catalog, its steady-state refresh.
 The catalog is the Gowalla-scale synthetic one (``bench_eval``'s, cached
 in ``.datasets/``). The record is merged into ``--out`` key by key
 (``tools.update_json``), so the grown-catalog probe's keys
-(``bench_serve_grown``) survive a re-run.
+(``bench_serve_grown``) survive a re-run. ``--profile DIR`` runs the
+measurement under ``torch.profiler``, which slows the host, and writes
+``DIR/trace.json`` and ``DIR/spans.json`` (``utils.spans.profiled``): a
+request's spans, ``serve.recommend`` and its parts, among them.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.serve import Recommender
 from igcn_cf_tpu_torch.tools import ROOT, device_line, update_json
 from igcn_cf_tpu_torch.tools.bench_eval import load_catalog
+from igcn_cf_tpu_torch.utils import spans
 
 DEFAULT_OUT = ROOT / "SERVE_TORCH.json"
 REQUEST_SIZES = (512, 4096)
@@ -138,10 +142,16 @@ def main(argv=None, device="cuda") -> dict:
     parser.add_argument("--device", default=device,
                         help="cuda (the card; raises where none is visible) "
                              "or cpu (the plain versions)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the measurement "
+                             "to DIR/trace.json and the program's spans to "
+                             "DIR/spans.json")
     args = parser.parse_args(argv)
     where = device_line(args.device)
-    result = dict(measure(load_catalog(), args.backend, args.device),
-                  platform=where)
+    catalog = load_catalog()
+    with spans.profiled(args.profile):
+        result = dict(measure(catalog, args.backend, args.device),
+                      platform=where)
     for key, value in result.items():
         update_json(args.out, key, value)
     print(f"wrote {args.out}", flush=True)

@@ -200,25 +200,27 @@ def gather_chain(idx: torch.Tensor, x: torch.Tensor, reps: int = REPS,
     the plain version."""
     if not _build.on_cuda(x):
         return gather_chain_plain(idx, x, reps)
-    if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2
-            or x.shape[1] != WIDTH or not x.is_contiguous()):
-        raise ValueError("x must be a contiguous (N, 128) f32 or bf16 tensor")
-    if (idx.dtype != torch.int32 or idx.shape != x.shape
-            or not idx.is_contiguous() or idx.device != x.device):
-        raise ValueError("idx must be a contiguous int32 tensor of x's shape "
-                         "on x's device")
-    if reps < 0:
-        raise ValueError(f"reps {reps} < 0")
-    n = x.shape[0]
-    if plan is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        plan = launch_plan(n, x.dtype, sms, reps)
-    out = torch.empty_like(x)
-    _build.launch("igcn_gather_chain", _aligned16(x), _aligned16(idx), out, n,
-                  reps, plan.width, plan.pitch, plan.rows_per_range,
-                  plan.row_ranges, plan.grid, int(plan.padded),
-                  int(plan.sorted), int(x.dtype == torch.bfloat16))
-    _build.LAUNCHES["T5"] += 1
+    with _build.counted("T5"):
+        if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2
+                or x.shape[1] != WIDTH or not x.is_contiguous()):
+            raise ValueError("x must be a contiguous (N, 128) f32 or bf16 "
+                             "tensor")
+        if (idx.dtype != torch.int32 or idx.shape != x.shape
+                or not idx.is_contiguous() or idx.device != x.device):
+            raise ValueError("idx must be a contiguous int32 tensor of x's "
+                             "shape on x's device")
+        if reps < 0:
+            raise ValueError(f"reps {reps} < 0")
+        n = x.shape[0]
+        if plan is None:
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            plan = launch_plan(n, x.dtype, sms, reps)
+        out = torch.empty_like(x)
+        _build.launch("igcn_gather_chain", _aligned16(x), _aligned16(idx), out,
+                      n, reps, plan.width, plan.pitch, plan.rows_per_range,
+                      plan.row_ranges, plan.grid, int(plan.padded),
+                      int(plan.sorted), int(x.dtype == torch.bfloat16))
     return out
 
 

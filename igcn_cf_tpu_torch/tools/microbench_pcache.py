@@ -96,14 +96,14 @@ def _launch_4d(entry, kid, p4, rows, x, out_rows, tr, *extra,
     """Launch C entry ``entry`` over (P4, rows, x padded to dpad, out) and
     count it under ``kid``; out is (out_rows, d) f32, or with
     ``transposed`` (d, out_rows). ``extra`` ints follow ``tr``."""
-    n, nj, sub, _ = p4.shape
-    xb = _d_padded(x)
-    dpad = xb.shape[1]
-    shape = (dpad, out_rows) if transposed else (out_rows, dpad)
-    out = torch.empty(shape, dtype=torch.float32, device=p4.device)
-    _build.launch(entry, p4, _rows32(rows), xb, out, n, nj, sub * 128,
-                  rows.shape[0], dpad, tr, *extra)
-    _build.LAUNCHES[kid] += 1
+    with _build.counted(kid):
+        n, nj, sub, _ = p4.shape
+        xb = _d_padded(x)
+        dpad = xb.shape[1]
+        shape = (dpad, out_rows) if transposed else (out_rows, dpad)
+        out = torch.empty(shape, dtype=torch.float32, device=p4.device)
+        _build.launch(entry, p4, _rows32(rows), xb, out, n, nj, sub * 128,
+                      rows.shape[0], dpad, tr, *extra)
     return out[: x.shape[1]] if transposed else out[:, : x.shape[1]]
 
 
@@ -131,24 +131,24 @@ def _fwd_launch(entry, kid, p4, rows, x0, tr, *extra, splits=None):
     """Launch forward-body entry ``entry`` (T1 or T3) and count it under
     ``kid``: S column splits (``fwd_splits`` unless given), their partial
     slabs summed in order. ``extra`` ints follow ``splits``."""
-    n, nj, sub, _ = p4.shape
-    npad = nj * sub * 128
-    _check_4d(p4, rows, x0, npad, "x0", tr)
-    r, d = rows.shape[0], x0.shape[1]
-    xb = _d_padded(x0)
-    dpad = xb.shape[1]
-    if splits is None:
-        splits = _build.splits("igcn_fused_fwd_splits", p4.device.index, r,
-                               npad, dpad, tr)
-    if not 1 <= splits <= npad // 64:
-        raise ValueError(f"splits {splits} must be in [1, {npad // 64}]")
-    out = torch.empty((r, dpad), dtype=torch.float32, device=p4.device)
-    part = out if splits == 1 else torch.empty((splits, r, dpad),
-                                               dtype=torch.float32,
-                                               device=p4.device)
-    _build.launch(entry, p4, rows.to(torch.int32).contiguous(), xb, part, out,
-                  n, nj, sub * 128, r, dpad, tr, splits, *extra)
-    _build.LAUNCHES[kid] += 1
+    with _build.counted(kid):
+        n, nj, sub, _ = p4.shape
+        npad = nj * sub * 128
+        _check_4d(p4, rows, x0, npad, "x0", tr)
+        r, d = rows.shape[0], x0.shape[1]
+        xb = _d_padded(x0)
+        dpad = xb.shape[1]
+        if splits is None:
+            splits = _build.splits("igcn_fused_fwd_splits", p4.device.index,
+                                   r, npad, dpad, tr)
+        if not 1 <= splits <= npad // 64:
+            raise ValueError(f"splits {splits} must be in [1, {npad // 64}]")
+        out = torch.empty((r, dpad), dtype=torch.float32, device=p4.device)
+        part = out if splits == 1 else torch.empty((splits, r, dpad),
+                                                   dtype=torch.float32,
+                                                   device=p4.device)
+        _build.launch(entry, p4, rows.to(torch.int32).contiguous(), xb, part,
+                      out, n, nj, sub * 128, r, dpad, tr, splits, *extra)
     return out if dpad == d else out[:, :d]
 
 

@@ -24,6 +24,7 @@ from igcn_cf_tpu_torch.core.registry import TRAINERS
 from igcn_cf_tpu_torch.data.sampler import DeviceNegativeSampler
 from igcn_cf_tpu_torch.data.transforms import auxiliary_interactions
 from igcn_cf_tpu_torch.train.trainer import BasicTrainer
+from igcn_cf_tpu_torch.utils.spans import span
 
 
 def bpr_loss_terms(model, params, buffers, users, pos, neg, drop):
@@ -48,20 +49,30 @@ class _StepTrainer(BasicTrainer):
     def train_step(self, *step_inputs) -> torch.Tensor:
         """One optimizer step on the given inputs; returns the loss (on the
         device, detached, not read back)."""
-        self.opt.zero_grad(set_to_none=True)
-        loss = self.loss(self.params, *step_inputs)
-        loss.backward()
-        self.opt.step()
+        with span("train.optimizer"):
+            self.opt.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            loss = self.loss(self.params, *step_inputs)
+        # on a card autograd runs the backward nodes on its device thread
+        with span("train.backward", adopts=True):
+            loss.backward()
+        with span("train.optimizer"):
+            self.opt.step()
         return loss.detach()
 
     def train_one_epoch(self) -> float:
         """Returns the epoch's mean loss; the per-step losses stay on the
         device in ``step_losses``."""
-        self.step_losses = torch.stack(
-            [self.train_step(*self.sample_step())
-             for _ in range(self.steps_per_epoch())])
-        self.buffers = self.model.epoch_update(self.buffers)
-        return float(self.step_losses.mean())
+        losses = []
+        for _ in range(self.steps_per_epoch()):
+            with span("train.step"):
+                with span("train.sample"):
+                    step_inputs = self.sample_step()
+                losses.append(self.train_step(*step_inputs))
+        with span("train.epoch_end"):
+            self.step_losses = torch.stack(losses)
+            self.buffers = self.model.epoch_update(self.buffers)
+            return float(self.step_losses.mean())
 
 
 @TRAINERS.register("BPRTrainer")

@@ -200,6 +200,18 @@ def test_profile_and_debug_nans(workdir):
         torch.autograd.set_detect_anomaly(False)
     trace = json.loads((workdir / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans of the one epoch, and the launch counts
+    got = json.loads((workdir / "trace" / "spans.json").read_text())
+    spans = got["spans"]
+    assert spans["train.epoch_end"]["count"] == 1
+    steps = spans["train.step"]["count"]
+    assert steps >= 1
+    for name in ("train.sample", "train.forward", "train.backward"):
+        assert spans[name]["count"] == steps, name
+    assert spans["train.optimizer"]["count"] == 2 * steps
+    for s in spans.values():
+        assert 0 <= s["self_ms"] <= s["total_ms"]
+    assert set(got["launches"]) >= {"K3", "K4", "K5"}
 
 
 @pytest.mark.parametrize("fn", [

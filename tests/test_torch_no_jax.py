@@ -1,5 +1,5 @@
-"""igcn_cf_tpu_torch, chip_smoke.py and the profilers run where jax is not
-installed: they import neither jax nor the JAX package."""
+"""igcn_cf_tpu_torch and chip_smoke.py run where jax is not installed:
+they import neither jax nor the JAX package."""
 
 import os
 import subprocess
@@ -27,7 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(igcn_cf_tpu_torch.__path__,
                                                "igcn_cf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, profile_serve_torch, profile_train_torch
+import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "igcn_cf_tpu")
                 and sys.modules[m] is not None)
@@ -110,7 +110,6 @@ def test_training_modules_import_without_jax(module):
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(ROOT).as_posix()
     for p in [*ROOT.glob("igcn_cf_tpu_torch/**/*.py"), ROOT / "chip_smoke.py",
-              ROOT / "profile_serve_torch.py", ROOT / "profile_train_torch.py",
               ROOT / "tests" / "torch_mesh_workers.py"]
 ))
 def test_source_names_no_jax_import(path):
