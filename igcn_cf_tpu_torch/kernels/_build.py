@@ -36,7 +36,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # Launches of each kernel, counted by its wrapper (``counted``) when the
 # block around a launch exits with no error. A run resets them to show which
-# kernels it went through.
+# kernels it went through. A CUDA graph's replay runs the kernels it captured
+# with no wrapper call, so it adds nothing here (``train/step_graph.py``).
 # K1m/K2m and K6m/K7m are the masked variants of K1/K2 and K6/K7 (edge
 # dropout inside the kernel), K8p is K8's two-seed pair; T1/T2 are the 4-D
 # gather kernels of ``tools/microbench_pcache``, T3/T4 their tuning

@@ -12,7 +12,10 @@ IGCNTrainer and IDCFTrainer.
 A step samples its batch on the device, runs the model forward, takes the
 gradients with autograd and steps the optimizer. ``train_step`` takes the
 batch and the dropout draw as arguments, so a test can feed it the JAX
-package's draws; ``sample_step`` draws them the trainer's way.
+package's draws; ``sample_step`` draws them the trainer's way. On a card,
+BPRTrainer (and IDCFTrainer) replay the step after the sampling as one
+CUDA graph where its inputs allow (``train/step_graph.py``); IGCNTrainer's
+dropout draw carries host mask seeds, so its steps stay eager.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from igcn_cf_tpu_torch.core.registry import TRAINERS
 from igcn_cf_tpu_torch.data.sampler import DeviceNegativeSampler
 from igcn_cf_tpu_torch.data.transforms import auxiliary_interactions
+from igcn_cf_tpu_torch.train.step_graph import StepGraph
 from igcn_cf_tpu_torch.train.trainer import BasicTrainer
 from igcn_cf_tpu_torch.utils.spans import span
 
@@ -80,10 +84,16 @@ class BPRTrainer(_StepTrainer):
     def __init__(self, config, dataset, model):
         super().__init__(config, dataset, model)
         self.l2_reg = config["l2_reg"]
+        self.step_graph = StepGraph()
 
     def sample_step(self):
         users, pos, negs = self.sampler.sample(self.gen, self.batch_size)
         return (users, pos, negs[:, 0]), self.model.draw_drop(self.keys, self.gen)
+
+    def train_step(self, *step_inputs) -> torch.Tensor:
+        """``_StepTrainer.train_step``, replayed from one CUDA graph where
+        the inputs and the trainer's state allow (``StepGraph``)."""
+        return self.step_graph.step(self, step_inputs, super().train_step)
 
     def loss(self, params, batch, drop):
         bpr, l2 = bpr_loss_terms(self.model, params, self.buffers, *batch, drop)
