@@ -1,0 +1,12 @@
+"""Device milliseconds per training step launched inside the program's
+``model.propagate`` spans: each NGCF layer's message in the forward (K6m,
+K7m, the self-loops, the rescale and the degree division). Its backward
+runs under autograd, outside the span, and is read with the rest of the
+backward in ``model_device_ms.dev``. None for a program without the spans."""
+
+
+def read(r):
+    if r.trace is None or not r.work.get("steps"):
+        return None
+    s = r.trace.by_range.get("model.propagate")
+    return None if s is None else 1e3 * s / r.work["steps"]

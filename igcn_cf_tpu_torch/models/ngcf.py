@@ -14,6 +14,11 @@ the concatenated propagated reps. On the sparse graph backend
 ``l1_norm_adjacency_with_self_loops``, each layer's message ``spmm``, and
 the step's edge drop one ``EdgeKeep`` over its padded entries, shared by
 every layer (``edge_dropout_vals``).
+
+Each layer is two spans (``utils/spans``), ``n_layers`` of each a forward:
+``model.propagate`` around the message m0 (K6m/K7m or the sparse product,
+the self-loops, the rescale and the degree division) and
+``model.transform`` around the rest of the layer.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from igcn_cf_tpu_torch.models.base import (
     linear_init,
     take_rows,
 )
+from igcn_cf_tpu_torch.utils.spans import span
 
 
 class NGCFDrop(NamedTuple):
@@ -140,15 +146,19 @@ class NGCF(Model):
         x = params["embedding"]
         outs = [x]
         for i in range(self.n_layers):
-            m0 = message(x)
-            h = (linear_apply(params["gc_layers"][i], m0)
-                 + linear_apply(params["bi_layers"][i], x * m0))
-            h = F.leaky_relu(h, negative_slope=0.2)
-            if drop is not None:
-                h = torch.where(drop.feat[i], h / (1.0 - self.dropout), 0.0)
-            x = h
-            norm = torch.sqrt(torch.clamp(l2sq(h, dim=1), min=1e-24))[:, None]
-            outs.append(h / norm)
+            with span("model.propagate"):
+                m0 = message(x)
+            with span("model.transform"):
+                h = (linear_apply(params["gc_layers"][i], m0)
+                     + linear_apply(params["bi_layers"][i], x * m0))
+                h = F.leaky_relu(h, negative_slope=0.2)
+                if drop is not None:
+                    h = torch.where(drop.feat[i], h / (1.0 - self.dropout),
+                                    0.0)
+                x = h
+                norm = torch.sqrt(torch.clamp(l2sq(h, dim=1),
+                                              min=1e-24))[:, None]
+                outs.append(h / norm)
         return torch.cat(outs, dim=1)
 
     def rep(self, params, buffers, *, train=False, drop=None):
