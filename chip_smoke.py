@@ -22,8 +22,11 @@ Phases, each fatal on failure:
   2. build   -- compile ``igcn_cf_tpu_torch/csrc/*.cu`` with nvcc.
   3. kernels -- K1, K2 (the bit-packed pair), K5 (fused retrieval), K6/K7
      (bb_matmul at the cache build's 128-wide block), K6m/K7m (the masked
-     bb_matmul on the full B at NGCF's d=64 and p=0.1; also bit-equal to
-     K6/K7 over the mask_words copy of B) and the K8 counterpart (the
+     bb_matmul on the full B at NGCF's d=64 and p=0.1, K7m on the rows
+     route over B's transposed pack as NGCF runs it, its old t2 body timed
+     beside it; K6m and the t2 body bit-equal to K6/K7 over the mask_words
+     copy of B, the rows route to itself at p = 0 over that copy's
+     transposed pack) and the K8 counterpart (the
      dropout mask, one seed, and K8p, its two-seed pair, over the full B
      and over microbench_dual's dense words, bit-equal, with device-only
      times and the pair's three-stream bound) against their plain PyTorch
@@ -33,8 +36,9 @@ Phases, each fatal on failure:
      same shape. Then the two product bodies: all eight entries on a small B
      whose word columns' set bits fall in several row chunks (m not a
      multiple of a chunk) at d 1, 33, 64, 128 and 256 against their plain
-     versions; two full-shape launches of K2 and of K7m bit-equal; each
-     body's launch shape and row chunks S; and K2 (d=64) and K7 (d=128) on
+     versions; two full-shape launches of K2, of K7m's t2 body and of its
+     rows route bit-equal; each body's launch shape and row chunks S; and
+     K2 (d=64) and K7 (d=128) on
      the full B timed at S 1, 2, 4, 8 and the default.
   4. serve path -- the Gowalla-scale synthetic catalog (seed 2021), an IGCN
      checkpoint (d=64, 3 layers) with weights from a numpy seed, then
@@ -71,7 +75,8 @@ Phases, each fatal on failure:
      on the card on every step (the cache engine; counted by name in a
      device profile of the epoch, since the step replays as a CUDA graph
      whose kernels no wrapper launches), NGCF launch K6m/K7m six times each
-     per step (three layers, forward and backward). After each epoch, K5
+     per step (three layers, forward and backward), every K7m on the rows
+     route over B's transposed pack (K7m_rows / K7m = 1). After each epoch, K5
      at that model's eval shape (d=64, then NGCF's d=256) against its plain
      version, as in phase 6; then one NGCF step through the kernels against
      the same step through the plain versions.
@@ -676,7 +681,8 @@ def check_matmul_and_mask(rng, full):
     from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
     from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
-    g = BipartiteDense.build(full.train_array, full.n_users, full.n_items, "cuda")
+    g = BipartiteDense.build(full.train_array, full.n_users, full.n_items, "cuda",
+                             transposed=True)
     m, kw = g.B.shape
     b, bt, nnz = csr_pair(g.B)
     out = {}
@@ -718,30 +724,55 @@ def check_matmul_and_mask(rng, full):
     ngcf = gowalla_preset("NGCF")[0]
     d, p, seed = ngcf["embedding_size"], ngcf["dropout"], 2**32 - 777
     premasked = bitpack.mask_words(g.B, seed, p)
+    # the masked copy's transposed pack, walked in B's schedule: the rows
+    # route over it at p = 0 must give the rows route's sums bit for bit
+    premasked_t = bitpack.transpose_words(premasked, g.n_items)._replace(
+        order=g.BT.order, heavy=g.BT.heavy)
     b, bt, nnz = csr_pair(premasked)
     for name, kern, plain, unmasked, rows, csr in (
             ("K6m", bitpack.mm_fwd_masked, bitpack.mm_fwd_masked_plain,
-             bitpack.mm_fwd, kw * 32, b),
-            ("K7m", bitpack.mm_bwd_masked, bitpack.mm_bwd_masked_plain,
-             bitpack.mm_bwd, m, bt)):
+             lambda x: bitpack.mm_fwd(premasked, x), kw * 32, b),
+            ("K7m", lambda wp, x, s, q: bitpack.mm_bwd_masked_rows(g.BT, x, s, q),
+             lambda wp, x, s, q: bitpack.mm_bwd_masked_rows_plain(g.BT, x, s, q),
+             lambda x: bitpack.mm_bwd_masked_rows(premasked_t, x, seed, 0.0), m,
+             bt)):
         x = torch.as_tensor(rng.standard_normal((rows, d), np.float32)).to("cuda")
         got, want = kern(g.B, x, seed, p), plain(g.B, x, seed, p)
         sync()
         torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
-        if not torch.equal(got, unmasked(premasked, x)):
-            raise AssertionError(f"{name} differs from the unmasked kernel over "
+        if not torch.equal(got, unmasked(x)):
+            raise AssertionError(f"{name} differs from the unmasked product over "
                                  "the mask_words copy of B")
         out[name] = {"max_abs_err": float((got - want).abs().max()),
                      "ms": cuda_ms(lambda: kern(g.B, x, seed, p)),
                      "plain_ms": cuda_ms(lambda: plain(g.B, x, seed, p), reps=3,
                                          warmup=1),
                      **sparse_yardstick(csr, x, g.B, got.shape[0], nnz)}
-        log(f"# {name} B {m}x{kw} words, X {rows}x{d}, p={p}: max_abs_err "
-            f"{out[name]['max_abs_err']:.3g}, bit-equal to the unmasked kernel "
-            f"over mask_words(B), {out[name]['ms']:.4f} ms vs plain "
-            f"{out[name]['plain_ms']:.4f} ms, torch.sparse.mm of the masked B "
-            f"{out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} "
-            f"ms ({out[name]['bound_by']})")
+        if name == "K6m":
+            log(f"# K6m B {m}x{kw} words, X {rows}x{d}, p={p}: max_abs_err "
+                f"{out[name]['max_abs_err']:.3g}, bit-equal to K6 over "
+                f"mask_words(B), {out[name]['ms']:.4f} ms vs plain "
+                f"{out[name]['plain_ms']:.4f} ms, torch.sparse.mm of the masked "
+                f"B {out[name]['library_ms']:.4f} ms, bound "
+                f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
+            continue
+        # the t2 body, which K7m runs where no transposed pack is given
+        t2 = bitpack.mm_bwd_masked(g.B, x, seed, p)
+        torch.testing.assert_close(t2, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
+        if not torch.equal(t2, bitpack.mm_bwd(premasked, x)):
+            raise AssertionError("K7m's t2 body differs from K7 over the "
+                                 "mask_words copy of B")
+        t2_ms = cuda_ms(lambda: bitpack.mm_bwd_masked(g.B, x, seed, p))
+        log(f"# K7m rows route, B^T {tuple(g.BT.words.shape)} words ({g.BT.heavy} "
+            f"heavy rows, a block each), X {rows}x{d}, p={p}: max_abs_err "
+            f"{out[name]['max_abs_err']:.3g}, bit-equal to itself at p=0 over "
+            f"the transposed mask_words(B), {out[name]['ms']:.4f} ms (device-only "
+            f"{device_ms(lambda: kern(g.B, x, seed, p)):.4f}) vs the t2 body "
+            f"{t2_ms:.4f} ms (device-only "
+            f"{device_ms(lambda: bitpack.mm_bwd_masked(g.B, x, seed, p)):.4f}), "
+            f"plain {out[name]['plain_ms']:.4f} ms, torch.sparse.mm of the "
+            f"masked B^T {out[name]['library_ms']:.4f} ms, bound "
+            f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
     return out
 
 
@@ -863,10 +894,18 @@ def check_bodies(rng, g):
             (kw * 32 if rows == "K" else m, d), np.float32)).to("cuda")
         if not torch.equal(kern(g.B, x, *mask), kern(g.B, x, *mask)):
             raise AssertionError(f"{name}: two launches on the full B differ")
-    log(f"# K2 and K7m (d=64) on the full B {m}x{kw}: two launches bit-equal")
+    x = torch.as_tensor(rng.standard_normal((m, 64), np.float32)).to("cuda")
+    if not torch.equal(bitpack.mm_bwd_masked_rows(g.BT, x, 2**32 - 777, 0.1),
+                       bitpack.mm_bwd_masked_rows(g.BT, x, 2**32 - 777, 0.1)):
+        raise AssertionError("K7m's rows route: two launches on the full B differ")
+    log(f"# K2, K7m's t2 body and K7m's rows route (d=64) on the full B {m}x{kw}: "
+        "two launches bit-equal")
     log(f"# launch shapes on the full B: t1 body d=64 {launch_shape(False, m, kw, 64)}; "
         f"t2 body d=64 {launch_shape(True, m, kw, 64)}; "
-        f"t2 body d=128 {launch_shape(True, m, kw, 128)}")
+        f"t2 body d=128 {launch_shape(True, m, kw, 128)}; rows route d=64 "
+        f"grid ({g.BT.heavy + -(-(g.cols_padded - g.BT.heavy) // 8)}, 1) x 256 "
+        f"threads ({g.BT.heavy} heavy rows a block, the rest 8 a block), "
+        f"{8 * 256 * 4} B shared")
 
     for entry, kid, d in (("igcn_t2", "K2", 64), ("igcn_bb_bwd", "K7", 128)):
         xt = torch.as_tensor(rng.standard_normal((d, m), np.float32)).to("cuda")
@@ -1337,6 +1376,7 @@ def plain_versions():
                 (bitpack, "mm_bwd", bitpack.mm_bwd_plain),
                 (bitpack, "mm_fwd_masked", bitpack.mm_fwd_masked_plain),
                 (bitpack, "mm_bwd_masked", bitpack.mm_bwd_masked_plain),
+                (bitpack, "mm_bwd_masked_rows", bitpack.mm_bwd_masked_rows_plain),
                 (dense_graph, "mask_words_pair", bitpack.mask_words_pair_plain),
                 (pcache, "gather_fwd", pcache.gather_fwd_plain),
                 (pcache, "gather_bwd", pcache.gather_bwd_plain)):
@@ -1423,6 +1463,11 @@ def phase_gcn(full):
         raise AssertionError(f"NGCF launched K6m/K7m {epoch['K6m']}/"
                              f"{epoch['K7m']} times in {steps} steps, expected "
                              f"{per_step} each per step")
+    if epoch["K7m_rows"] != epoch["K7m"]:
+        raise AssertionError(f"NGCF: {epoch['K7m_rows']} of {epoch['K7m']} K7m "
+                             "launches took the rows route")
+    log(f"# NGCF epoch of {steps} steps: K7m_rows / K7m = {epoch['K7m_rows']} / "
+        f"{epoch['K7m']} = {epoch['K7m_rows'] / epoch['K7m']:.3f}")
     log(f"# launches during the LightGCN and NGCF runs: {launches}")
     check_launches(launches, GCN_KERNELS, "LightGCN/NGCF")
     rep = trainer.model.rep(trainer.params, trainer.buffers)

@@ -57,6 +57,21 @@
 // stream of 32 bytes a row (16 at d=128) runs at well under the card's
 // rate, and the slabs cost S * K * d * 4 bytes written and read again.
 //
+// K7m's rows route (t2_kernel_rows): the t2 product without the t2 body.
+// Given B's transposed pack B^T (one row an item, B's rows as its columns,
+// in the same tile layout; built once with the graph), Y = (B o M)^T @ X is
+// the t1 walk over B^T's rows: one writer per output row, so no partial
+// slabs and no second pass, and the word stream of 16 bytes a lane of the
+// t1 body. Item degrees are skewed (Zipf): at the Gowalla shape the
+// heaviest row of B^T holds ~2,000 set bits against a mean of 17, and one
+// warp on it waits on ~100 gather rounds. So warps take the rows in
+// descending order of their set bits (the pack's `order`), and each row of
+// more than one gather list's bits (the pack's first `heavy` rows) takes a
+// whole block, warp j walking steps j, j + 8, ... of the row and warp 0
+// adding the 8 partials in warp order. A row's sum order thus depends on
+// whether a warp or a block walks it: one pack and one schedule give one
+// order, deterministic. Measured times are in PERF.md.
+//
 // Both bodies also serve K6/K7, the bb_matmul pair (entries at the end), and
 // take a compile-time MASKED flag for the edge-dropout variants (K1m/K2m of
 // the pair, K6m/K7m of bb_matmul): an edge counts only where the keep word
@@ -123,15 +138,22 @@ __device__ __forceinline__ void add_bf16x8(float (&acc)[8], uint4 v) {
   }
 }
 
+// Which edges a t1-body walk drops: none; those whose keep word of their
+// own (row, word) coordinate clears them (K1m/K6m, walking rows of B); or,
+// walking a row of the transposed pack B^T (K7m's rows route), the same
+// edges in B's coordinates: entry (item row, user col) is bit
+// (row % 4096) / 128 of keepword(seed, col, word(row)), so the rows route
+// drops exactly what K6m and the t2 body drop under the seed.
+enum class Drop { kNone, kB, kBT };
+
 // Add the X1 rows of list[0, n) to acc; `done` entries of the row came
 // before. Lane group g (L lanes, one 16-byte vector of a row each) takes
 // the entries whose rank in the row is g mod G, in order, kT1Loads of them
-// in flight before their adds. MASKED: first drop the entries whose edge the
-// keep word of (seed, row, word) clears, keeping the order of the rest
-// (lane t tests entry t of each 32), so that the ranks, and the sums, are
-// those of the unmasked body over the masked words. Returns the entries
-// added.
-template <int L, bool MASKED>
+// in flight before their adds. DROP: first drop the entries whose edge the
+// keep word clears, keeping the order of the rest (lane t tests entry t of
+// each 32), so that the ranks, and the sums, are those of the unmasked body
+// over the masked words. Returns the entries added.
+template <int L, Drop DROP>
 __device__ __forceinline__ int t1_flush(float (&acc)[8], int* list, int n,
                                         int done,
                                         const __nv_bfloat16* __restrict__ x1,
@@ -139,14 +161,21 @@ __device__ __forceinline__ int t1_flush(float (&acc)[8], int* list, int n,
                                         int thr) {
   constexpr int G = 32 / L;
   __syncwarp();
-  if constexpr (MASKED) {
+  if constexpr (DROP != Drop::kNone) {
     int kept = 0;
     for (int i0 = 0; i0 < n; i0 += 32) {
       const int e = i0 + lane;
       const int col = e < n ? list[e] : 0;
-      const int word = (col / kTK) * kTKP + col % kTKP, bit = (col % kTK) / kTKP;
-      const bool keep =
-          e < n && (igcn::keepword(seed, (uint32_t)row, (uint32_t)word, thr) >> bit) & 1u;
+      bool keep;
+      if constexpr (DROP == Drop::kB) {
+        const int word = (col / kTK) * kTKP + col % kTKP, bit = (col % kTK) / kTKP;
+        keep = e < n &&
+               (igcn::keepword(seed, (uint32_t)row, (uint32_t)word, thr) >> bit) & 1u;
+      } else {
+        const int word = (row / kTK) * kTKP + row % kTKP, bit = (row % kTK) / kTKP;
+        keep = e < n &&
+               (igcn::keepword(seed, (uint32_t)col, (uint32_t)word, thr) >> bit) & 1u;
+      }
       const unsigned ballot = __ballot_sync(kFull, keep);
       __syncwarp();  // every entry of this 32 is read before any moves down
       if (keep) list[kept + __popc(ballot & ((1u << lane) - 1u))] = col;
@@ -174,33 +203,24 @@ __device__ __forceinline__ int t1_flush(float (&acc)[8], int* list, int n,
   return n;
 }
 
-// L: lanes per X1 row, 16 bytes each (d <= 8 * L); d % 8 == 0. MASKED: drop
-// edges by the keep word of (seed, row, word) with threshold thr (unused
-// when false).
-template <int L, bool MASKED>
-__global__ void __launch_bounds__(kT1Threads)
-t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
-          float* __restrict__ y1, int m, int kw, int d, bool vec, uint32_t seed,
-          int thr) {
-  __shared__ int lists[kT1Threads / 32][kT1List];
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= m) return;  // uniform per warp
-  int* list = lists[threadIdx.x / 32];
-  const uint32_t* words = wp + (size_t)row * kw;
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-
-  // The row's set-bit columns go to the list in (step, lane, word, bit)
-  // order; a full list is gathered before the walk goes on.
+// One warp's walk over the set bits of one row's words, steps s0, s0 + ds,
+// ... of kT1Words words each, their X1 rows added to acc (the lane groups'
+// partials, not yet summed). The row's set-bit columns go to the list in
+// (step, lane, word, bit) order; a full list is gathered before the walk
+// goes on.
+template <int L, Drop DROP>
+__device__ __forceinline__ void t1_walk(float (&acc)[8], int* list,
+                                        const uint32_t* words, int kw, bool vec,
+                                        const __nv_bfloat16* __restrict__ x1,
+                                        int d, int lane, int row, uint32_t seed,
+                                        int thr, int s0, int ds) {
   int n = 0, done = 0;
   const int steps = (kw + kT1Words - 1) / kT1Words;
-  uint4 next = load_words(words, 4 * lane, kw, vec);
-  for (int s = 0; s < steps; ++s) {
+  uint4 next = load_words(words, s0 * kT1Words + 4 * lane, kw, vec);
+  for (int s = s0; s < steps; s += ds) {
     const int base = s * kT1Words + 4 * lane;  // this lane's first word
     const uint32_t w[4] = {next.x, next.y, next.z, next.w};
-    if (s + 1 < steps) next = load_words(words, base + kT1Words, kw, vec);
+    if (s + ds < steps) next = load_words(words, base + ds * kT1Words, kw, vec);
     const int cnt = __popc(w[0]) + __popc(w[1]) + __popc(w[2]) + __popc(w[3]);
     if (__ballot_sync(kFull, cnt != 0) == 0u) continue;
     int incl = cnt;  // inclusive prefix sum of the set bits over the lanes
@@ -233,20 +253,91 @@ t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
       n += hi - lo;
       lo = hi;
       if (n == kT1List) {
-        done += t1_flush<L, MASKED>(acc, list, n, done, x1, d, lane, row, seed, thr);
+        done += t1_flush<L, DROP>(acc, list, n, done, x1, d, lane, row, seed, thr);
         n = 0;
       }
     }
   }
-  t1_flush<L, MASKED>(acc, list, n, done, x1, d, lane, row, seed, thr);
+  t1_flush<L, DROP>(acc, list, n, done, x1, d, lane, row, seed, thr);
 #pragma unroll
   for (int o = L; o < 32; o <<= 1) {  // the groups' partials, in a fixed order
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], o);
   }
+}
+
+// L: lanes per X1 row, 16 bytes each (d <= 8 * L); d % 8 == 0. MASKED: drop
+// edges by the keep word of (seed, row, word) with threshold thr (unused
+// when false).
+template <int L, bool MASKED>
+__global__ void __launch_bounds__(kT1Threads)
+t1_kernel(const uint32_t* __restrict__ wp, const __nv_bfloat16* __restrict__ x1,
+          float* __restrict__ y1, int m, int kw, int d, bool vec, uint32_t seed,
+          int thr) {
+  __shared__ int lists[kT1Threads / 32][kT1List];
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= m) return;  // uniform per warp
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  t1_walk<L, MASKED ? Drop::kB : Drop::kNone>(acc, lists[threadIdx.x / 32],
+                                             wp + (size_t)row * kw, kw, vec, x1,
+                                             d, lane, row, seed, thr, 0, 1);
   const int c = lane % L;
   if (lane < L && 8 * c < d) {
     float4* out = reinterpret_cast<float4*>(y1 + (size_t)row * d + 8 * c);
+    out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+// K7m's rows route: Y (n_out, d) = (B o M)^T @ X as the t1 walk over the
+// rows of the transposed pack wt (mt, kwt) = B^T, one writer per output
+// row. Blocks take rows in the order `order` gives: its first n_heavy rows
+// a block each (warp j walks steps j, j + 8, ... and warp 0 adds the 8
+// partials in warp order), then the rest a warp each. Output rows [mt,
+// n_out) hold no set bit and are written as zeros.
+template <int L>
+__global__ void __launch_bounds__(kT1Threads)
+t2_kernel_rows(const uint32_t* __restrict__ wt, const int* __restrict__ order,
+               const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
+               int mt, int n_out, int kwt, int d, int n_heavy, bool vec,
+               uint32_t seed, int thr) {
+  constexpr int kWarps = kT1Threads / 32;
+  __shared__ int lists[kWarps][kT1List];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool heavy = (int)blockIdx.x < n_heavy;  // uniform per block
+  const int slot = heavy ? blockIdx.x : n_heavy + (blockIdx.x - n_heavy) * kWarps + warp;
+  if (slot >= n_out) return;  // uniform per warp, never in a heavy block
+  const int row = slot < mt ? order[slot] : slot;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  if (row < mt)
+    t1_walk<L, Drop::kBT>(acc, lists[warp], wt + (size_t)row * kwt, kwt, vec, x, d,
+                          lane, row, seed, thr, heavy ? warp : 0, heavy ? kWarps : 1);
+  const int c = lane % L;
+  if (heavy) {  // the warps' partials through their (now free) lists
+    float* part = reinterpret_cast<float*>(lists[warp]);
+    if (lane < L) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part[8 * c + i] = acc[i];
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    if (lane < L) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] = reinterpret_cast<const float*>(lists[0])[8 * c + i];
+      for (int w = 1; w < kWarps; ++w) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc[i] += reinterpret_cast<const float*>(lists[w])[8 * c + i];
+      }
+    }
+  }
+  if (lane < L && 8 * c < d) {
+    float4* out = reinterpret_cast<float4*>(y + (size_t)row * d + 8 * c);
     out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
     out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
@@ -468,6 +559,18 @@ cudaError_t launch_t1(const uint32_t* wp, const __nv_bfloat16* x1, float* y1,
   return cudaGetLastError();
 }
 
+template <int L>
+cudaError_t launch_t2_rows(const uint32_t* wt, const int* order,
+                           const __nv_bfloat16* x, float* y, int mt, int n_out,
+                           int kwt, int d, int n_heavy, uint32_t seed, int thr,
+                           cudaStream_t stream) {
+  const int rows_per_block = kT1Threads / 32;
+  const int blocks = n_heavy + (n_out - n_heavy + rows_per_block - 1) / rows_per_block;
+  t2_kernel_rows<L><<<blocks, kT1Threads, 0, stream>>>(
+      wt, order, x, y, mt, n_out, kwt, d, n_heavy, aligned16(wt), seed, thr);
+  return cudaGetLastError();
+}
+
 template <int FPL, int WPB, bool MASKED>
 cudaError_t launch_t2(const uint32_t* wp, const __nv_bfloat16* x2, float* part,
                       float* y2, int m, int kw, int d, int splits,
@@ -505,6 +608,28 @@ int run_t1(const void* wp, const void* x1, void* y1, int m, int kw, int d,
     case 8: return (int)launch_t1<8, MASKED>(w, x, y, m, kw, d, seed, thr, s);
     case 16: return (int)launch_t1<16, MASKED>(w, x, y, m, kw, d, seed, thr, s);
     default: return (int)launch_t1<32, MASKED>(w, x, y, m, kw, d, seed, thr, s);
+  }
+}
+
+int run_t2_rows(const void* wt, const void* order, const void* x, void* y,
+                int mt, int n_out, int kwt, int d, int n_heavy, uint32_t seed,
+                int thr, void* stream) {
+  auto w = static_cast<const uint32_t*>(wt);
+  auto o = static_cast<const int*>(order);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto yf = static_cast<float*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bad_args(mt, kwt, d, thr) || n_out < mt || n_heavy < 0 || n_heavy > mt ||
+      !aligned16(x) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaGetLastError();
+  switch (t1_lanes(d)) {
+    case 1: return (int)launch_t2_rows<1>(w, o, xb, yf, mt, n_out, kwt, d, n_heavy, seed, thr, s);
+    case 2: return (int)launch_t2_rows<2>(w, o, xb, yf, mt, n_out, kwt, d, n_heavy, seed, thr, s);
+    case 4: return (int)launch_t2_rows<4>(w, o, xb, yf, mt, n_out, kwt, d, n_heavy, seed, thr, s);
+    case 8: return (int)launch_t2_rows<8>(w, o, xb, yf, mt, n_out, kwt, d, n_heavy, seed, thr, s);
+    case 16: return (int)launch_t2_rows<16>(w, o, xb, yf, mt, n_out, kwt, d, n_heavy, seed, thr, s);
+    default: return (int)launch_t2_rows<32>(w, o, xb, yf, mt, n_out, kwt, d, n_heavy, seed, thr, s);
   }
 }
 
@@ -616,6 +741,19 @@ int igcn_bb_bwd_masked(const void* wp, const void* x, void* part, void* y,
                        int thr, void* stream) {
   return run_t2<true>(wp, x, part, y, m, kw, d, splits, (uint32_t)seed, thr,
                       stream);
+}
+
+// K7m's rows route (bitpack.mm_bwd_masked_rows): the product of
+// igcn_bb_bwd_masked over the transposed pack wt (mt, kwt) of B, x (rows,
+// d) bf16 with every column of wt that holds a bit below rows, order (mt,)
+// int32 a permutation of wt's rows, y (n_out, d) f32 with n_out >= mt.
+// One writer per output row, in a fixed order: deterministic, no scratch.
+int igcn_bb_bwd_masked_rows(const void* wt, const void* order, const void* x,
+                            void* y, int mt, int n_out, int kwt, int d,
+                            int n_heavy, unsigned int seed, int thr,
+                            void* stream) {
+  return run_t2_rows(wt, order, x, y, mt, n_out, kwt, d, n_heavy, (uint32_t)seed,
+                     thr, stream);
 }
 
 }  // extern "C"

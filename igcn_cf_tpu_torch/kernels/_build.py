@@ -42,10 +42,12 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # dropout inside the kernel), K8p is K8's two-seed pair; T1/T2 are the 4-D
 # gather kernels of ``tools/microbench_pcache``, T3/T4 their tuning
 # variants of ``tools/microbench_pcache_tune`` and T5 the gather probe of
-# ``tools/microbench_gather``.
+# ``tools/microbench_gather``. K7m_rows counts the K7m launches that took
+# the rows route over a transposed pack (``bitpack.mm_bwd_masked_rows``):
+# each is a K7m launch too, so K7m_rows / K7m is the route's share.
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K6m": 0, "K7m": 0, "K8": 0, "K8p": 0, "K1m": 0, "K2m": 0,
-            "T1": 0, "T2": 0, "T3": 0, "T4": 0, "T5": 0}
+            "K6m": 0, "K7m": 0, "K7m_rows": 0, "K8": 0, "K8p": 0, "K1m": 0,
+            "K2m": 0, "T1": 0, "T2": 0, "T3": 0, "T4": 0, "T5": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +69,10 @@ _SIGNATURES = {
     "igcn_bb_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "igcn_t2_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
     "igcn_bb_bwd_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
+    # K7m's rows route: (wt, order, x (rows, d) bf16, y (n_out, d) f32, mt,
+    # n_out, kwt, d, n_heavy, seed, thr, stream)
+    "igcn_bb_bwd_masked_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I,
+                                _P),
     # (wp, out, m, kw, seed, thr, stream)
     "igcn_mask_words": (_P, _P, _I, _I, _U, _I, _P),
     # (wp, out_a, out_b, m, kw, seed_a, seed_b, thr, stream)

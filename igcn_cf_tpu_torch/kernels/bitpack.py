@@ -26,7 +26,10 @@ the pair with directions swapped. ``bb_matmul(wp, x, transpose)`` is
 B @ X or B^T @ X on row-major (n, d) X -- kernels K6/K7, which the
 propagation-cache build runs. ``bb_matmul_dropped(wp, x, seed, p,
 transpose)`` is the same product with edge dropout applied inside the
-kernels (K6m/K7m), as NGCF trains. ``bbt_pair_dropped(wp, x1t, x2t, seed1,
+kernels (K6m/K7m), as NGCF trains; given B's transposed pack
+(``TransposedPack``, ``transpose_pack``), its masked B^T @ X takes K7m's
+rows route (``mm_bwd_masked_rows``), a walk over the rows of B^T with one
+writer per output row. ``bbt_pair_dropped(wp, x1t, x2t, seed1,
 seed2, p)`` is the transposed pair with the same in-kernel dropout
 (K1m/K2m), which the kernel microbenchmark compares with the premasked
 pair. ``mask_words(wp, seed, p)`` applies the coordinate-hashed keep mask,
@@ -40,6 +43,8 @@ CUDA tensors go to the hand-written kernels in ``csrc/`` (``bbt_pair.cu``,
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -391,36 +396,43 @@ def mm_bwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mm_bwd_plain(wp, x)
 
 
-def _mm(wp, x, transpose: bool, mask):
+def _mm(wp, x, transpose: bool, mask, wt=None):
     """B @ X (K6), B^T @ X (K7), or their masked variants (K6m/K7m) when
-    ``mask`` is (seed, p)."""
+    ``mask`` is (seed, p); K7m takes the rows route when ``wt``, B's
+    transposed pack, is given."""
     if mask is None:
         return mm_bwd(wp, x) if transpose else mm_fwd(wp, x)
-    return mm_bwd_masked(wp, x, *mask) if transpose else mm_fwd_masked(wp, x, *mask)
+    if not transpose:
+        return mm_fwd_masked(wp, x, *mask)
+    if wt is None:
+        return mm_bwd_masked(wp, x, *mask)
+    return mm_bwd_masked_rows(wt, x, *mask)
 
 
 class _MatmulFn(torch.autograd.Function):
     """The product in one orientation; its gradient in x is the other
     orientation over the same words and, when masked, the same seed, so the
-    backward sees the forward's drops exactly."""
+    backward sees the forward's drops exactly. ``wt`` (or None), B's
+    transposed pack, routes the masked B^T @ X of either pass."""
 
     @staticmethod
-    def forward(ctx, wp, x, transpose: bool, mask):
+    def forward(ctx, wp, x, transpose: bool, mask, wt):
         ctx.save_for_backward(wp)
-        ctx.transpose, ctx.mask = transpose, mask
-        return _mm(wp, x, transpose, mask)
+        ctx.transpose, ctx.mask, ctx.wt = transpose, mask, wt
+        return _mm(wp, x, transpose, mask, wt)
 
     @staticmethod
     def backward(ctx, ct):
         (wp,) = ctx.saved_tensors
-        return None, _mm(wp, ct, not ctx.transpose, ctx.mask), None, None
+        return (None, _mm(wp, ct, not ctx.transpose, ctx.mask, ctx.wt), None,
+                None, None)
 
 
 def bb_matmul(wp: torch.Tensor, x: torch.Tensor,
               transpose: bool = False) -> torch.Tensor:
     """B @ x, or B^T @ x with ``transpose``, for the 1-bit-packed B; the
     gradient in x runs through the other orientation over the same words."""
-    return _MatmulFn.apply(wp, x, transpose, None)
+    return _MatmulFn.apply(wp, x, transpose, None, None)
 
 
 # -- edge-dropout keep mask (bit-identical to the JAX package) ----------------
@@ -623,14 +635,125 @@ def mm_bwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
 
 
 def bb_matmul_dropped(wp: torch.Tensor, x: torch.Tensor, seed: int, p: float,
-                      transpose: bool = False) -> torch.Tensor:
+                      transpose: bool = False,
+                      wt: Optional[TransposedPack] = None) -> torch.Tensor:
     """(B * M) @ x, or (B * M)^T @ x with ``transpose``, for the keep mask M
     of the u32 ``seed`` and dropout ``p`` (quantized to 1/256), without the
     1/(1-p) rescale (callers fold it). The mask is a function of (seed, row,
     word), so the backward, the other orientation under the same seed, sees
     the forward's drops exactly (the JAX package's ``bb_matmul_dropped``
-    given the seed its key yields)."""
-    return _MatmulFn.apply(wp, x, transpose, (int(seed), float(p)))
+    given the seed its key yields). Given ``wt``, B's transposed pack, the
+    masked B^T @ x of the forward or the backward takes K7m's rows route
+    (``mm_bwd_masked_rows``)."""
+    return _MatmulFn.apply(wp, x, transpose, (int(seed), float(p)), wt)
+
+
+# -- K7m's rows route: B^T @ X over a transposed pack -------------------------
+
+# set bits above which a row of a transposed pack counts as heavy: more
+# than one gather list of the t1 walk (kT1List in csrc/bbt_pair.cu)
+HEAVY_BITS = 256
+
+
+class TransposedPack(NamedTuple):
+    """B^T of a packed (m, kw) B in the same bit-plane tile layout, for
+    K7m's rows route: row i of ``words`` holds B's column i, for the B
+    columns that can hold a set bit (``words`` has that many rows, not
+    32 * kw), and its columns, B's rows, are padded to TK. ``order`` (int32
+    on the words' device) lists the rows by descending set bits, ties by
+    row: the order in which the kernel's warps take them, so that the
+    longest walks start first; its first ``heavy`` rows hold more than
+    HEAVY_BITS set bits each. ``m`` is B's rows (X's), ``k`` = 32 * kw
+    B's padded columns (Y's rows)."""
+
+    words: torch.Tensor
+    order: torch.Tensor
+    heavy: int
+    m: int
+    k: int
+
+
+def transpose_pack(rows: np.ndarray, cols: np.ndarray, n_cols: int, m: int,
+                   k: int, device) -> TransposedPack:
+    """The transposed pack of the (m, k) B whose set bits are (``rows[e]``,
+    ``cols[e]``), unique pairs with every col below ``n_cols``, built on
+    ``device``: the words by ``scatter_bits`` (only the index arrays cross
+    to it), the order from the columns' counts on the host."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    words = scatter_bits(n_cols, pad_to(m, TK) // 32, cols,
+                         (rows // TK) * TKP + rows % TKP, (rows % TK) // TKP,
+                         device)
+    deg = np.bincount(cols, minlength=n_cols)
+    order = np.argsort(-deg, kind="stable").astype(np.int32)
+    return TransposedPack(words, torch.as_tensor(order).to(device),
+                          int((deg > HEAVY_BITS).sum()), m, k)
+
+
+def transpose_words(wp: torch.Tensor, n_cols: Optional[int] = None
+                    ) -> TransposedPack:
+    """``transpose_pack`` of packed words ``wp`` (m, kw), e.g. a
+    ``mask_words`` copy of B, on their device; ``n_cols`` (every column,
+    32 * kw, by default) must lie past B's last set bit."""
+    m, kw = wp.shape
+    n_cols = kw * 32 if n_cols is None else n_cols
+    nz = [unpack_bits(wp[r0:r0 + 2048]).nonzero().cpu().numpy() + [r0, 0]
+          for r0 in range(0, m, 2048)]
+    nz = np.concatenate(nz) if nz else np.zeros((0, 2), np.int64)
+    if len(nz) and nz[:, 1].max() >= n_cols:
+        raise ValueError(f"a set bit in column {nz[:, 1].max()}, past n_cols "
+                         f"{n_cols}")
+    return transpose_pack(nz[:, 0], nz[:, 1], n_cols, m, kw * 32, wp.device)
+
+
+def mm_bwd_masked_rows_plain(wt: TransposedPack, x: torch.Tensor, seed: int,
+                             p: float) -> torch.Tensor:
+    """Y (k, d) = (B^T * M^T) @ X over the transposed pack's rows, row-blocked
+    as ``mm_bwd_masked_plain``, with M the keep mask of ``seed`` in B's
+    coordinates: entry (item i, user u) keeps bit (i % TK) // TKP of
+    keepword(seed, u, word(i)). X (m, d) rounded to bf16, f32 sums."""
+    xb = _bf16_round(x)
+    mt = wt.words.shape[0]
+    thr = _threshold_u8(p)
+    users = torch.arange(wt.m, dtype=torch.int64, device=x.device)[None, :]
+    y = xb.new_zeros((wt.k, x.shape[1]))
+    for r0 in range(0, mt, _PLAIN_ROWS):
+        r1 = min(r0 + _PLAIN_ROWS, mt)
+        items = torch.arange(r0, r1, dtype=torch.int64, device=x.device)[:, None]
+        keep = (_keepword(seed, users, (items // TK) * TKP + items % TKP, thr)
+                >> ((items % TK) // TKP)) & 1
+        y[r0:r1] = (unpack_bits(wt.words[r0:r1])[:, :wt.m] * keep) @ xb
+    return y
+
+
+def mm_bwd_masked_rows(wt: TransposedPack, x: torch.Tensor, seed: int,
+                       p: float) -> torch.Tensor:
+    """K7m over B's transposed pack: Y (k, d) = (B * M)^T @ X, X (m, d), the
+    keep decisions of ``mm_bwd_masked(B, x, seed, p)`` with the f32 sums in
+    another order. CUDA tensors launch the rows route of
+    ``csrc/bbt_pair.cu`` (counted as K7m and as K7m_rows); CPU tensors take
+    ``mm_bwd_masked_rows_plain``."""
+    seed = _check_seed(seed)
+    if not _build.on_cuda(wt.words):
+        return mm_bwd_masked_rows_plain(wt, x, seed, p)
+    _check_words(wt.words)
+    if x.device != wt.words.device:
+        raise ValueError(f"x is on {x.device}, the pack on {wt.words.device}")
+    if not x.is_floating_point() or x.dim() != 2 or x.shape[0] != wt.m:
+        raise ValueError(f"x must be a float ({wt.m}, d) tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    mt, kwt = wt.words.shape
+    if wt.order.dtype != torch.int32 or wt.order.shape != (mt,):
+        raise ValueError("the pack's order must be an int32 row permutation")
+    with _build.counted("K7m"):
+        d = x.shape[1]
+        xb = _bf16_rows(x.T, pad_to(d, _D_ALIGN))
+        dp = xb.shape[1]
+        y = torch.empty((wt.k, dp), dtype=torch.float32, device=x.device)
+        _build.launch("igcn_bb_bwd_masked_rows", wt.words, wt.order, xb, y, mt,
+                      wt.k, kwt, dp, wt.heavy, seed, _threshold_u8(p))
+    _build.LAUNCHES["K7m_rows"] += 1
+    return y if dp == d else y[:, :d]
 
 
 def packed_lookup(packed: torch.Tensor, rows: torch.Tensor,

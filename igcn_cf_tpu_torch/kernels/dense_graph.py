@@ -17,7 +17,8 @@ layout through ``bb_matmul`` (K6/K7), as the propagation-cache build does.
 Every operator here is differentiable. Edge dropout draws are explicit
 arguments (``FeatDrop``), drawn by the model: the INMO feature aggregation
 masks B once per direction (``mask_words_pair``, one pass for both), NGCF
-masks inside K6m/K7m (``bb_matmul_dropped``). Catalogs whose packed B
+masks inside K6m/K7m (``bb_matmul_dropped``), its K7m over B's transposed
+pack (``BipartiteDense.build(..., transposed=True)``). Catalogs whose packed B
 does not fit the device's budget take the sparse COO backend
 (``kernels/sparse.py``).
 """
@@ -36,6 +37,7 @@ from igcn_cf_tpu_torch.kernels.bitpack import (
     TK,
     TKP,
     TM,
+    TransposedPack,
     bb_matmul,
     bb_matmul_dropped,
     bbt_pair,
@@ -44,6 +46,7 @@ from igcn_cf_tpu_torch.kernels.bitpack import (
     pack_interactions,
     pad_to,
     scatter_bits,
+    transpose_pack,
 )
 
 PAD_ROWS = TM
@@ -66,7 +69,9 @@ def _pad_cols(xt: torch.Tensor, n: int) -> torch.Tensor:
 class BipartiteDense:
     """Bit-packed binary interaction matrix (rows padded to TM=512, columns
     to TK=4096) plus logical-size degree vectors. ``B`` is (rows_pad,
-    cols_pad/32) int32 words in the kernels/bitpack.py layout."""
+    cols_pad/32) int32 words in the kernels/bitpack.py layout; ``BT``, where
+    ``build`` was asked for it, B's transposed pack (one row an item), over
+    which the masked B^T products take K7m's rows route."""
 
     B: torch.Tensor  # (nup, nip/32) int32
     deg_u: torch.Tensor  # (n_users,) f32
@@ -76,13 +81,15 @@ class BipartiteDense:
     # sha1 of the deduplicated edge set and the shape: two graphs with equal
     # fingerprints are the same graph
     fingerprint: str = ""
+    BT: Optional[TransposedPack] = None
 
     @staticmethod
     def build(train_array: np.ndarray, n_users: int, n_items: int,
-              device="cuda") -> "BipartiteDense":
+              device="cuda", transposed: bool = False) -> "BipartiteDense":
         """Pack on ``device``: only the deduplicated (row, word, bit) index
         arrays cross to it, not the packed matrix. Pairs are deduplicated on
-        the host because the scatter adds powers of two."""
+        the host because the scatter adds powers of two. ``transposed`` also
+        packs B^T from the same index arrays (``BT``, ~B's size again)."""
         device = _build.require_device(device)
         train_array = np.asarray(train_array)
         mp, kp = pad_to(n_users, TM), pad_to(n_items, TK)
@@ -102,7 +109,9 @@ class BipartiteDense:
         deg_i.index_add_(0, cols_t, ones)
         fp = hashlib.sha1(np.array([n_users, n_items], np.int64).tobytes()
                           + uniq.astype(np.int64).tobytes()).hexdigest()
-        return BipartiteDense(packed, deg_u, deg_i, n_users, n_items, fp)
+        bt = (transpose_pack(rows, cols, n_items, mp, kp, device)
+              if transposed else None)
+        return BipartiteDense(packed, deg_u, deg_i, n_users, n_items, fp, bt)
 
     @staticmethod
     def build_host(train_array: np.ndarray, n_users: int, n_items: int,
@@ -142,15 +151,17 @@ class BipartiteDense:
 
     def mm_ui_dropped(self, xi: torch.Tensor, seed: int,
                       p: float) -> torch.Tensor:
-        """(B * M) @ xi -> (n_users, d), M the keep mask of ``seed`` (K6m)."""
+        """(B * M) @ xi -> (n_users, d), M the keep mask of ``seed`` (K6m;
+        its gradient K7m, over ``BT`` where the graph has it)."""
         return bb_matmul_dropped(self.B, _pad_rows(xi, self.cols_padded), seed,
-                                 p)[: self.n_users]
+                                 p, wt=self.BT)[: self.n_users]
 
     def mm_iu_dropped(self, xu: torch.Tensor, seed: int,
                       p: float) -> torch.Tensor:
-        """(B * M)^T @ xu -> (n_items, d) (K7m)."""
+        """(B * M)^T @ xu -> (n_items, d) (K7m, over ``BT`` where the graph
+        has it; its gradient K6m)."""
         return bb_matmul_dropped(self.B, _pad_rows(xu, self.rows_padded), seed,
-                                 p, True)[: self.n_items]
+                                 p, True, self.BT)[: self.n_items]
 
 
 def sym_norm_propagate(g: BipartiteDense, x: torch.Tensor) -> torch.Tensor:

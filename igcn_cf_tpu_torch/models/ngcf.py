@@ -102,8 +102,10 @@ class NGCF(Model):
                 device=self.device)
             self.edge_nnz = g.nnz  # the length of a step's EdgeKeep
             return {"norm_adj": g}
+        # B^T packed as well: every masked B^T product of a step (the
+        # forward's K7m and K6m's gradient) takes K7m's rows route
         return {"bip": BipartiteDense.build(arr, self.n_users, self.n_items,
-                                            self.device)}
+                                            self.device, transposed=True)}
 
     def draw_drop(self, keys, generator):
         """The step's draw. Dense: two u32 edge-mask seeds from the host

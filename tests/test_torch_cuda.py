@@ -531,6 +531,113 @@ def test_bb_matmul_dropped_grad_matches_plain(cuda, transpose):
     torch.testing.assert_close(x.grad, plain(g.B, ct, 41, 0.1), rtol=1e-5, atol=1e-4)
 
 
+def _heavy_graph(rng, n_users, n_items, nnz, heavy_users, device):
+    """A random graph whose last item ``heavy_users`` users hold (a row of
+    B^T with more set bits than the rows route's warps list at once), with
+    B's transposed pack."""
+    pairs = np.stack([rng.integers(0, n_users, nnz),
+                      rng.integers(0, n_items, nnz)], axis=1)
+    heavy = np.stack([np.arange(heavy_users), np.full(heavy_users, n_items - 1)],
+                     axis=1)
+    return BipartiteDense.build(np.concatenate([pairs, heavy]), n_users, n_items,
+                                device, transposed=True)
+
+
+@pytest.mark.parametrize("n_users,n_items,nnz,heavy,d,seed,p", [
+    (300, 400, 12000, 290, 64, 7, 0.1),             # NGCF's width and dropout
+    (5000, 9000, 40000, 1500, 16, 2**32 - 1, 0.3),  # two tiles of users, top seed
+    (600, 5000, 20000, 600, 100, 12345, 0.5),       # d not a multiple of 32
+    (700, 300, 2000, 0, 256, 3, 0.1),               # no heavy row, widest d
+])
+def test_rows_route_matches_plain(cuda, n_users, n_items, nnz, heavy, d, seed, p):
+    """K7m's rows route against its plain version and against K7m's t2 body
+    over B, at K7m's tolerances; each launch counts as K7m and K7m_rows."""
+    rng = np.random.default_rng(n_users + d)
+    g = _heavy_graph(rng, n_users, n_items, nnz, heavy, cuda)
+    assert g.BT.heavy == (1 if heavy > bitpack.HEAVY_BITS else 0)
+    x = torch.randn(g.rows_padded, d, device=cuda)
+    before = dict(_build.LAUNCHES)
+    got = bitpack.mm_bwd_masked_rows(g.BT, x, seed, p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K7m"] == before["K7m"] + 1
+    assert _build.LAUNCHES["K7m_rows"] == before["K7m_rows"] + 1
+    assert got.shape == (g.cols_padded, d)
+    torch.testing.assert_close(got, bitpack.mm_bwd_masked_rows_plain(g.BT, x, seed, p),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got, bitpack.mm_bwd_masked(g.B, x, seed, p),
+                               rtol=1e-5, atol=1e-4)
+    assert not torch.any(got[n_items:])  # rows past the pack's are zeros
+
+
+@pytest.mark.parametrize("seed,p", [(7, 0.1), (2**32 - 3, 0.3)])
+def test_rows_route_at_p0_over_a_premasked_pack_is_bit_equal(cuda, seed, p):
+    """The rows route at p is bit-equal to itself at p = 0 over the
+    transposed pack of ``mask_words(B, seed, p)`` walked in B's schedule
+    (its order and heavy rows: a row's sum order depends on whether a block
+    or a warp walks it): the in-kernel keep decision is B's, and dropped
+    edges leave the order of the rest."""
+    rng = np.random.default_rng(5)
+    g = _heavy_graph(rng, 2000, 9000, 60000, 900, cuda)
+    x = torch.randn(g.rows_padded, 64, device=cuda)
+    premasked = bitpack.transpose_words(bitpack.mask_words(g.B, seed, p),
+                                        g.n_items)._replace(order=g.BT.order,
+                                                            heavy=g.BT.heavy)
+    got = bitpack.mm_bwd_masked_rows(g.BT, x, seed, p)
+    assert torch.equal(got, bitpack.mm_bwd_masked_rows(premasked, x, seed, 0.0))
+    assert not torch.equal(got, bitpack.mm_bwd_masked_rows(g.BT, x, seed, 0.0))
+
+
+def test_rows_route_is_deterministic_with_heavy_rows(cuda):
+    """Two launches bit-equal where several rows of B^T outgrow a warp's
+    list, and the heaviest row equal to its plain version."""
+    rng = np.random.default_rng(6)
+    pairs = np.stack([rng.integers(0, 3000, 50000),
+                      rng.zipf(1.3, 50000) % 9000], axis=1)
+    g = BipartiteDense.build(pairs, 3000, 9000, cuda, transposed=True)
+    assert g.BT.heavy > 1
+    x = torch.randn(g.rows_padded, 64, device=cuda)
+    a = bitpack.mm_bwd_masked_rows(g.BT, x, 99, 0.1)
+    assert torch.equal(a, bitpack.mm_bwd_masked_rows(g.BT, x, 99, 0.1))
+    torch.testing.assert_close(a, bitpack.mm_bwd_masked_rows_plain(g.BT, x, 99, 0.1),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_bb_matmul_dropped_over_a_pack_grad_matches_plain(cuda, transpose):
+    """With B's transposed pack, the masked B^T @ X of the forward
+    (transpose) or of the backward takes the rows route, and both passes
+    match their plain versions."""
+    rng = np.random.default_rng(8)
+    g = _heavy_graph(rng, 700, 5000, 20000, 500, cuda)
+    m, kw = g.B.shape
+    x = torch.randn((m if transpose else kw * 32), 64, device=cuda,
+                    requires_grad=True)
+    ct = torch.randn((kw * 32 if transpose else m), 64, device=cuda)
+    before = dict(_build.LAUNCHES)
+    y = bitpack.bb_matmul_dropped(g.B, x, 41, 0.1, transpose, g.BT)
+    y.backward(ct)
+    assert _build.LAUNCHES["K7m_rows"] == before["K7m_rows"] + 1
+    fwd = bitpack.mm_bwd_masked_plain if transpose else bitpack.mm_fwd_masked_plain
+    bwd = bitpack.mm_fwd_masked_plain if transpose else bitpack.mm_bwd_masked_plain
+    torch.testing.assert_close(y.detach(), fwd(g.B, x.detach(), 41, 0.1), rtol=1e-5,
+                               atol=1e-4)
+    torch.testing.assert_close(x.grad, bwd(g.B, ct, 41, 0.1), rtol=1e-5, atol=1e-4)
+
+
+def test_rows_route_refuses_bad_operands(cuda):
+    rng = np.random.default_rng(9)
+    g = _heavy_graph(rng, 300, 400, 3000, 0, cuda)
+    with pytest.raises(ValueError):  # X of B's columns, not its rows
+        bitpack.mm_bwd_masked_rows(g.BT, torch.zeros(g.cols_padded, 8, device=cuda),
+                                   1, 0.1)
+    with pytest.raises(ValueError):
+        bitpack.mm_bwd_masked_rows(g.BT, torch.zeros(g.rows_padded, 8, device=cuda),
+                                   2**32, 0.1)
+    with pytest.raises(ValueError):
+        bitpack.mm_bwd_masked_rows(g.BT._replace(order=g.BT.order.long()),
+                                   torch.zeros(g.rows_padded, 8, device=cuda), 1, 0.1)
+
+
 def test_ngcf_step_on_the_card_matches_the_cpu(cuda):
     """One NGCF BPR step's loss and gradients through the kernels against
     the same step on the CPU's plain versions: same params, batch and drop."""
@@ -555,6 +662,8 @@ def test_ngcf_step_on_the_card_matches_the_cpu(cuda):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["K6m"] == before["K6m"] + 6
     assert _build.LAUNCHES["K7m"] == before["K7m"] + 6
+    # every K7m of the step, forward and backward, took the rows route
+    assert _build.LAUNCHES["K7m_rows"] == before["K7m_rows"] + 6
     to_cpu = lambda t: t.cpu()  # noqa: E731
     drop_cpu = type(drop)(type(drop.edge)(drop.edge.seed_b, drop.edge.seed_bt,
                                           to_cpu(drop.edge.keep_u),

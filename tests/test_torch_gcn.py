@@ -4,6 +4,7 @@ bit-exact, NGCF's propagation and representation on the JAX package's own
 draws, trainer steps and Adam, evaluation, and nested checkpoints carried
 both ways."""
 
+import dataclasses
 import os
 
 import jax
@@ -170,6 +171,109 @@ def test_masked_wrappers_refuse_bad_seeds():
             bitpack.mm_fwd_masked(wp, torch.zeros(TK, 4), bad, 0.1)
         with pytest.raises(ValueError):
             bitpack.bb_matmul_dropped(wp, torch.zeros(TM, 4), bad, 0.1, True)
+
+
+# -- K7m's rows route over a transposed pack: its plain version ------------------
+
+
+def _heavy_pairs(rng, n_users, n_items, nnz, heavy_item, heavy_users):
+    """Random (user, item) pairs plus one item that ``heavy_users`` users
+    hold: a row of B^T with that many set bits."""
+    pairs = np.stack([rng.integers(0, n_users, nnz),
+                      rng.integers(0, n_items, nnz)], axis=1)
+    heavy = np.stack([np.arange(heavy_users), np.full(heavy_users, heavy_item)],
+                     axis=1)
+    return np.concatenate([pairs, heavy])
+
+
+@pytest.mark.parametrize("n_users,n_items,nnz", [
+    (700, 5000, 6000),   # two column tiles of items, users in one tile
+    (4500, 300, 9000),   # users over two tiles: B^T's columns padded to 8,192
+])
+def test_transposed_pack_equals_pack_bits_of_bt(rng, n_users, n_items, nnz):
+    """The pack ``build`` makes from its index arrays is ``pack_bits`` of the
+    transposed unpacked B, its rows B's real columns and its columns B's
+    rows padded to TK; the order lists rows by descending set bits."""
+    pairs = _heavy_pairs(rng, n_users, n_items, nnz, n_items - 1, 300)
+    g = dense_graph.BipartiteDense.build(pairs, n_users, n_items, device="cpu",
+                                         transposed=True)
+    bt = bitpack.unpack_bits(g.B).T[:n_items].numpy()
+    width = bitpack.pad_to(g.rows_padded, TK)
+    want = bitpack.pack_bits(np.pad(bt, ((0, 0), (0, width - bt.shape[1]))))
+    np.testing.assert_array_equal(g.BT.words.numpy(), want)
+    deg = bt.sum(axis=1)
+    order = g.BT.order.numpy()
+    assert sorted(order) == list(range(n_items)) and order[0] == n_items - 1
+    assert (np.diff(deg[order]) <= 0).all()
+    assert g.BT.heavy == int((deg > bitpack.HEAVY_BITS).sum()) == 1
+    assert (g.BT.m, g.BT.k) == (g.rows_padded, g.cols_padded)
+    again = bitpack.transpose_words(g.B, n_items)
+    assert torch.equal(again.words, g.BT.words)
+    assert torch.equal(again.order, g.BT.order) and again.heavy == g.BT.heavy
+
+
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("p", [0.1, 0.3])
+@pytest.mark.parametrize("seed", [11, 2**32 - 9])
+def test_rows_route_plain_equals_masked_plain(rng, monkeypatch, seed, p, d):
+    """K7m's rows route (plain version) equals ``mm_bwd_masked_plain`` over
+    B exactly: small integers make every sum exact, so equal outputs mean
+    the same keep decisions, taken in B's coordinates. Item 4,100 has 400
+    users, more than one gather list of the kernel's walk; the row blocks
+    are a ragged 384."""
+    monkeypatch.setattr(bitpack, "_PLAIN_ROWS", 384)
+    pairs = _heavy_pairs(rng, 900, 5000, 8000, 4100, 400)
+    g = dense_graph.BipartiteDense.build(pairs, 900, 5000, device="cpu",
+                                         transposed=True)
+    x = torch.as_tensor(rng.integers(-4, 5, (g.rows_padded, d)).astype(np.float32))
+    got = bitpack.mm_bwd_masked_rows(g.BT, x, seed, p)
+    want = bitpack.mm_bwd_masked_plain(g.B, x, seed, p)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, bitpack.mm_bwd_plain(g.B, x))  # it drops
+
+
+@pytest.mark.parametrize("dropout", [0.1, 0.5])
+def test_ngcf_same_with_and_without_transposed_pack(port_tiny, dropout):
+    """NGCF's loss and gradients on the CPU through the rows route (the
+    graph ``init_buffers`` builds, with B^T) and through the t2 orientation
+    over B alone: the same edges and operands, f32 sums in another order."""
+    from igcn_cf_tpu_torch.core.prng import KeySeq
+
+    cfg = dict(NGCF_CFG, dropout=dropout)
+    model = get_model(cfg, port_tiny, device="cpu")
+    buffers = model.init_buffers()
+    assert buffers["bip"].BT is not None
+    plain = {"bip": dataclasses.replace(buffers["bip"], BT=None)}
+    params = model.init_params(torch.Generator().manual_seed(3))
+    drop = model.draw_drop(KeySeq(4), torch.Generator().manual_seed(4))
+    users = torch.arange(0, 40)
+    pos, neg = torch.arange(40) % port_tiny.n_items, torch.arange(40, 80) % port_tiny.n_items
+    leaves = [v.requires_grad_() for v in flatten_tree(params).values()]
+    results = []
+    for bufs in (buffers, plain):
+        u, pp, n, l2 = model.bpr_pieces(params, bufs, users, pos, neg, train=True,
+                                        drop=drop)
+        loss = (torch.nn.functional.softplus((u * n).sum(1) - (u * pp).sum(1)).mean()
+                + 1e-3 * l2.mean())
+        results.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    (loss_a, grads_a), (loss_b, grads_b) = results
+    torch.testing.assert_close(loss_a, loss_b, rtol=1e-6, atol=0)
+    for ga, gb in zip(grads_a, grads_b):
+        torch.testing.assert_close(ga, gb, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("NGCF", NGCF_CFG),
+    ("LightGCN", dict(LGCN_CFG, prop_cache=False)),
+    ("IGCN", {"name": "IGCN", "embedding_size": 16, "n_layers": 2,
+              "dropout": 0.3, "feature_ratio": 1.0, "graph_backend": "dense",
+              "prop_cache": False}),
+])
+def test_only_ngcf_packs_b_transposed(port_tiny, name, cfg):
+    """NGCF's graph carries B's transposed pack; IGCN's and LightGCN's do
+    not, so their set-up and memory do not grow."""
+    bip = get_model(cfg, port_tiny, device="cpu").init_buffers()["bip"]
+    assert (bip.BT is not None) == (name == "NGCF")
 
 
 # -- NGCF propagation and representation ------------------------------------------
