@@ -45,8 +45,9 @@ Phases, each fatal on failure:
      ``Recommender.from_checkpoint`` over the dropui (80%) catalog,
      ``refresh`` onto the full catalog twice, and ``recommend`` k=20 for 512
      and 4,096 users. The ids are checked for range, uniqueness, exclusion,
-     and against the same path through the plain versions; K1, K2 and K5
-     must launch during this phase.
+     and against the same path through the plain versions; K1 and K2 (the
+     feature aggregation), K6 and K7 (the propagation) and K5 must launch
+     during this phase.
   5. train path -- IGCN at the Gowalla preset (d=64, 3 layers, dropout 0.3,
      IGCNTrainer batch 2048, Adam lr 1e-3, aux_reg 0.01) on the full
      catalog through ``get_model(...)`` and ``get_trainer(...).train()``:
@@ -334,9 +335,10 @@ KERNELS = {
            "igcn_cf_tpu_torch/csrc/gather_probe.cu",
            "tools/microbench_gather.py:42"),
 }
-SERVE_KERNELS = ("K1", "K2", "K5")
+# the feature aggregation runs K1/K2, every propagation K6/K7
+SERVE_KERNELS = ("K1", "K2", "K5", "K6", "K7")
 TRAIN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8p")
-GCN_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
+GCN_KERNELS = ("K3", "K4", "K5", "K6", "K7", "K6m", "K7m")
 TOOL_KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K6m", "K7m", "K8", "K8p",
                 "K1m", "K2m", "T1", "T2", "T3", "T4", "T5")
 ZOO_KERNELS = ("K5", "K6", "K7")
@@ -820,9 +822,10 @@ def check_mask(words, label, seed_a, seed_b, p):
     return out
 
 
-# the eight entries of the two product bodies: (kernel, plain version, X
-# rows "K" (B @ X, t1 body) or "m" (B^T @ X, t2 body), masked), each taking
-# X row-major (n, d) and, when masked, (seed, p) after it
+# the eight entry points of the one product, each under its own launch id:
+# (kernel, plain version, X rows "K" (B @ X, t1 body) or "m" (B^T @ X, t2
+# body), masked), each taking X row-major (n, d) and, when masked, (seed,
+# p) after it
 def pair_entries():
     from igcn_cf_tpu_torch.kernels import bitpack
 
@@ -907,17 +910,17 @@ def check_bodies(rng, g):
         f"threads ({g.BT.heavy} heavy rows a block, the rest 8 a block), "
         f"{8 * 256 * 4} B shared")
 
-    for entry, kid, d in (("igcn_t2", "K2", 64), ("igcn_bb_bwd", "K7", 128)):
-        xt = torch.as_tensor(rng.standard_normal((d, m), np.float32)).to("cuda")
+    for kid, d in (("K2", 64), ("K7", 128)):
+        x = torch.as_tensor(rng.standard_normal((m, d), np.float32)).to("cuda")
         default = bitpack.t2_splits(m, kw, d)
-        want = bitpack._t2_launch(entry, kid, g.B, xt, ())
+        want = bitpack._t2_launch(kid, g.B, x, ())
         times = []
         for splits in (1, 2, 4, 8):
-            got = bitpack._t2_launch(entry, kid, g.B, xt, (), splits)
+            got = bitpack._t2_launch(kid, g.B, x, (), splits)
             torch.testing.assert_close(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL)
-            ms = cuda_ms(lambda: bitpack._t2_launch(entry, kid, g.B, xt, (), splits))
+            ms = cuda_ms(lambda: bitpack._t2_launch(kid, g.B, x, (), splits))
             times.append(f"S {splits} {ms:.4f}")
-        ms = cuda_ms(lambda: bitpack._t2_launch(entry, kid, g.B, xt, ()))
+        ms = cuda_ms(lambda: bitpack._t2_launch(kid, g.B, x, ()))
         log(f"# {kid} d={d} on the full B, ms by row chunks: {', '.join(times)}; "
             f"default S {default} {ms:.4f}")
 
@@ -1012,7 +1015,7 @@ def phase_serve(full):
     import torch
 
     from igcn_cf_tpu_torch.data.transforms import dropui
-    from igcn_cf_tpu_torch.kernels import _build, bitpack, dense_graph
+    from igcn_cf_tpu_torch.kernels import _build
     from igcn_cf_tpu_torch.kernels.retrieval import fused_topk_ids_plain
     from igcn_cf_tpu_torch.serve import Recommender
 
@@ -1073,7 +1076,7 @@ def phase_serve(full):
     scores = plain_scores(ur, rec._items_t, ew, rec._banned_row, 4096)
     same_a, gap_a = topk_agree(got, want, scores, TOPK_RTOL)
     # (b) representations and retrieval all through the plain versions
-    with mock.patch.object(dense_graph, "bbt_pair", bitpack.bbt_pair_plain):
+    with plain_versions():
         rep_plain = rec.model.rep(rec.params, rec.buffers)
     n_users = rec.model.n_users
     rep_kernel = torch.cat([rec._users_rep, rec._items_t[:, : rec.model.n_items].T])
@@ -1365,22 +1368,11 @@ def check_eval_topk(trainer, name, split="val", banned=None, exact=False):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the training paths' kernel wrappers to their plain versions."""
-    from igcn_cf_tpu_torch.kernels import bitpack, dense_graph, pcache
+    """Route every kernel wrapper to its plain version: each one chooses by
+    ``_build.on_cuda``, here False for the card's tensors too."""
+    from igcn_cf_tpu_torch.kernels import _build
 
-    with contextlib.ExitStack() as stack:
-        for mod, name, plain in (
-                (bitpack, "t1", bitpack.t1_plain),
-                (bitpack, "t2", bitpack.t2_plain),
-                (bitpack, "mm_fwd", bitpack.mm_fwd_plain),
-                (bitpack, "mm_bwd", bitpack.mm_bwd_plain),
-                (bitpack, "mm_fwd_masked", bitpack.mm_fwd_masked_plain),
-                (bitpack, "mm_bwd_masked", bitpack.mm_bwd_masked_plain),
-                (bitpack, "mm_bwd_masked_rows", bitpack.mm_bwd_masked_rows_plain),
-                (dense_graph, "mask_words_pair", bitpack.mask_words_pair_plain),
-                (pcache, "gather_fwd", pcache.gather_fwd_plain),
-                (pcache, "gather_bwd", pcache.gather_bwd_plain)):
-            stack.enter_context(mock.patch.object(mod, name, plain))
+    with mock.patch.object(_build, "on_cuda", lambda t: False):
         yield
 
 
@@ -3305,10 +3297,11 @@ def phase_mesh(full, smi):
 
 # -- phase 14: the measuring tools ------------------------------------------------
 
-# the kernels the tools run: K5 in every eval and request, K1/K2 in the
-# dense backend's representations, K3/K4 on the Amazon slab, the midscale
-# cache engine and the dry run's, K6/K7 in their slab builds, K6m/K7m in
-# the dry run's dense-sharded step, K8p in the trial mesh's IGCN steps
+# the kernels the tools run: K5 in every eval and request, K1/K2 in IGCN's
+# feature aggregation, K3/K4 on the Amazon slab, the midscale cache engine
+# and the dry run's, K6/K7 in the dense backend's representations and the
+# slab builds, K6m/K7m in the dry run's dense-sharded step, K8p in the
+# trial mesh's IGCN steps
 MEASURE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K6m", "K7m", "K8p")
 MEASURE_DIR = CACHE_DIR / "measure"
 MEASURE_RDV = CACHE_DIR / "measure_rdv"

@@ -8,8 +8,9 @@
 //
 // B is (m, kw) uint32 words, K = 32 * kw, in the bit-plane tile layout:
 // column c is word (c / 4096) * 128 + c % 128, bit (c % 4096) / 128. The
-// Python wrappers keep the JAX package's transposed (d, n) interface and
-// hand the kernels row-major (n, d) operands and outputs.
+// Python product (kernels/bitpack.py) hands the kernels row-major (n, d)
+// operands and outputs; the JAX package's transposed (d, n) pair is a view
+// over it.
 //
 // What bounds them on the H100. At the serving slice B is 30,208 x 1,408
 // words (170 MB) and a row holds ~28 set bits, so ~2% of the words are not
@@ -72,7 +73,7 @@
 // whether a warp or a block walks it: one pack and one schedule give one
 // order, deterministic. Measured times are in PERF.md.
 //
-// Both bodies also serve K6/K7, the bb_matmul pair (entries at the end), and
+// Both bodies also serve K6/K7, the bb_matmul pair (through the same entries), and
 // take a compile-time MASKED flag for the edge-dropout variants (K1m/K2m of
 // the pair, K6m/K7m of bb_matmul): an edge counts only where the keep word
 // of its (row, word) coordinate (keepword.cuh) keeps it. The keep decision
@@ -678,7 +679,11 @@ void igcn_pair_launch_shape(int t2, int m, int kw, int d, int* shape) {
   }
 }
 
-// Every entry takes d a multiple of 8 in [8, 256].
+// One entry per body and mask; every entry takes d a multiple of 8 in
+// [8, 256]. The t1 entries run K1 and K6 (Y = B @ X, the JAX package's
+// _t1_pallas and _fwd_pallas: the same product, in the pair's transposed
+// layout and in X's own), the t2 entries K2 and K7 (Y = B^T @ X,
+// _t2_pallas and _bwd_pallas).
 // t1 entries: x1 (K, d) bf16 rows, y1 (m, d) f32.
 int igcn_t1(const void* wp, const void* x1, void* y1, int m, int kw, int d,
             void* stream) {
@@ -692,12 +697,12 @@ int igcn_t2(const void* wp, const void* x2, void* part, void* y2, int m, int kw,
   return run_t2<false>(wp, x2, part, y2, m, kw, d, splits, 0u, 0, stream);
 }
 
-// K1m and K2m: the transposed pair with the keep mask inside the kernel,
-// _t1_pallas/_t2_pallas with masked=True, which bbt_pair_dropped reaches
-// (igcn_cf_tpu/kernels/bitpack.py:745). They run the masked bodies that
-// K6m/K7m run; entries of their own so that each direction of the pair is
-// launched, counted and checked apart. seed is the u32 mask seed, thr =
-// round(p * 256); no 1/(1-p) rescale.
+// The masked entries, K1m/K6m and K2m/K7m: the same bodies with the
+// edge-dropout mask inside the kernel, the Pallas kernels with
+// masked=True (bbt_pair_dropped and bb_matmul_dropped,
+// igcn_cf_tpu/kernels/bitpack.py). seed is the u32 mask seed, thr =
+// round(p * 256) in [0, 255]; no 1/(1-p) rescale. The masked t2 entry keeps
+// the unmasked one's splits and summation order: deterministic.
 int igcn_t1_masked(const void* wp, const void* x1, void* y1, int m, int kw,
                    int d, unsigned int seed, int thr, void* stream) {
   return run_t1<true>(wp, x1, y1, m, kw, d, (uint32_t)seed, thr, stream);
@@ -710,41 +715,8 @@ int igcn_t2_masked(const void* wp, const void* x2, void* part, void* y2, int m,
                       stream);
 }
 
-// K6 and K7: the bb_matmul pair of the JAX package,
-// igcn_cf_tpu/kernels/bitpack.py::_fwd_pallas (K6, Y = B @ X) and
-// ::_bwd_pallas (K7, Y = B^T @ X). They compute the products of K1 and K2
-// on X in its original row-major (n, d) layout, which is what the kernel
-// bodies above read, so the Python wrappers pass X with no transposed copy.
-// The propagation-cache build runs the unmasked pair at d = 128.
-int igcn_bb_fwd(const void* wp, const void* x, void* y, int m, int kw, int d,
-                void* stream) {
-  return run_t1<false>(wp, x, y, m, kw, d, 0u, 0, stream);
-}
-
-int igcn_bb_bwd(const void* wp, const void* x, void* part, void* y, int m,
-                int kw, int d, int splits, void* stream) {
-  return run_t2<false>(wp, x, part, y, m, kw, d, splits, 0u, 0, stream);
-}
-
-// K6m and K7m: the same pair with the in-kernel edge-dropout mask,
-// _fwd_pallas/_bwd_pallas with masked=True (bb_matmul_dropped), which NGCF
-// runs in every layer of a training step at d = 64. seed is the u32 mask
-// seed, thr = round(p * 256) in [0, 255]; no 1/(1-p) rescale. K7m keeps
-// K7's splits and summation order: deterministic.
-int igcn_bb_fwd_masked(const void* wp, const void* x, void* y, int m, int kw,
-                       int d, unsigned int seed, int thr, void* stream) {
-  return run_t1<true>(wp, x, y, m, kw, d, (uint32_t)seed, thr, stream);
-}
-
-int igcn_bb_bwd_masked(const void* wp, const void* x, void* part, void* y,
-                       int m, int kw, int d, int splits, unsigned int seed,
-                       int thr, void* stream) {
-  return run_t2<true>(wp, x, part, y, m, kw, d, splits, (uint32_t)seed, thr,
-                      stream);
-}
-
 // K7m's rows route (bitpack.mm_bwd_masked_rows): the product of
-// igcn_bb_bwd_masked over the transposed pack wt (mt, kwt) of B, x (rows,
+// igcn_t2_masked over the transposed pack wt (mt, kwt) of B, x (rows,
 // d) bf16 with every column of wt that holds a bit below rows, order (mt,)
 // int32 a permutation of wt's rows, y (n_out, d) f32 with n_out >= mt.
 // One writer per output row, in a fixed order: deterministic, no scratch.

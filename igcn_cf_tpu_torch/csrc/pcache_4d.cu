@@ -359,21 +359,11 @@ void igcn_fused_fwd_launch_shape(int r_tot, int npad, int d, int tr,
   shape[7] = npad / kChunk;
 }
 
-// K3: S of igcn_gather_fwd at this shape (T1's S at TR 128).
-int igcn_gather_fwd_splits(int r_tot, int npad, int dpad) {
-  return fwd_splits(r_tot, npad, dpad, kK3Tr);
-}
-
-// K3's launch at this shape: igcn_fused_fwd_launch_shape at TR 128.
-void igcn_gather_fwd_launch_shape(int r_tot, int npad, int d, int* shape) {
-  igcn_fused_fwd_launch_shape(r_tot, npad, d, kK3Tr, shape);
-}
-
 // K3: p (n, npad) bf16, npad a multiple of 64 (a column slab of the
 // sharded cache has npad < n); rows (r_tot,) int32; x0
 // (npad, dpad) bf16; part (splits, r_tot, dpad) f32 scratch (may be out
 // when splits is 1); out (r_tot, dpad) f32. splits in [1, npad / 64], the
-// body's range; the wrapper passes igcn_gather_fwd_splits.
+// body's range; the wrapper passes igcn_fused_fwd_splits at TR 128.
 int igcn_gather_fwd(const void* p, const void* rows, const void* x0,
                     void* part, void* out, int n, int npad, int r_tot,
                     int dpad, int splits, void* stream) {

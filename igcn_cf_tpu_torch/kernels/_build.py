@@ -43,7 +43,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # gather kernels of ``tools/microbench_pcache``, T3/T4 their tuning
 # variants of ``tools/microbench_pcache_tune`` and T5 the gather probe of
 # ``tools/microbench_gather``. K7m_rows counts the K7m launches that took
-# the rows route over a transposed pack (``bitpack.mm_bwd_masked_rows``):
+# the rows route over a transposed pack (``counted("K7m", "K7m_rows")``):
 # each is a K7m launch too, so K7m_rows / K7m is the route's share.
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K6m": 0, "K7m": 0, "K7m_rows": 0, "K8": 0, "K8p": 0, "K1m": 0,
@@ -56,19 +56,16 @@ _U = ctypes.c_uint
 # c_int; each returns cudaGetLastError() after its launches. The stream is
 # the last argument and is added by ``launch``.
 _SIGNATURES = {
-    # t1 body: (wp, x (K, d) bf16, y (m, d) f32, m, kw, d, stream), d a
-    # multiple of 8; the masked entries take (seed, thr) before the stream
+    # t1 body (K1, K6 and, masked, K1m, K6m): (wp, x (K, d) bf16, y (m, d)
+    # f32, m, kw, d, stream), d a multiple of 8; the masked entry takes
+    # (seed, thr) before the stream
     "igcn_t1": (_P, _P, _P, _I, _I, _I, _P),
-    "igcn_bb_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "igcn_t1_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
-    "igcn_bb_fwd_masked": (_P, _P, _P, _I, _I, _I, _U, _I, _P),
-    # t2 body: (wp, x (m, d) bf16, part (splits, K, d) f32, y (K, d) f32, m,
-    # kw, d, splits, stream); the masked entries take (seed, thr) before
-    # the stream
+    # t2 body (K2, K7 and, masked, K2m, K7m): (wp, x (m, d) bf16, part
+    # (splits, K, d) f32, y (K, d) f32, m, kw, d, splits, stream); the
+    # masked entry takes (seed, thr) before the stream
     "igcn_t2": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "igcn_bb_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "igcn_t2_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
-    "igcn_bb_bwd_masked": (_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _P),
     # K7m's rows route: (wt, order, x (rows, d) bf16, y (n_out, d) f32, mt,
     # n_out, kwt, d, n_heavy, seed, thr, stream)
     "igcn_bb_bwd_masked_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I,
@@ -120,45 +117,51 @@ def reset_launches() -> None:
 
 
 class _Count:
-    """Counts a launch of ``kid`` when the block exits cleanly."""
+    """Counts a launch under each of ``kids`` when the block exits cleanly."""
 
-    __slots__ = ("kid",)
+    __slots__ = ("kids",)
 
-    def __init__(self, kid: str):
-        self.kid = kid
+    def __init__(self, kids: tuple):
+        self.kids = kids
 
     def __enter__(self):
         pass
 
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None:
-            LAUNCHES[self.kid] += 1
+            for kid in self.kids:
+                LAUNCHES[kid] += 1
 
 
 class _CountedSpan(spans.Span):
-    __slots__ = ("kid",)
+    __slots__ = ("kids",)
 
-    def __init__(self, kid: str):
-        super().__init__("kernel." + kid)
-        self.kid = kid
+    def __init__(self, kids: tuple):
+        super().__init__("kernel." + kids[0])
+        self.kids = kids
 
     def __exit__(self, exc_type, exc, tb):
         super().__exit__(exc_type, exc, tb)
         if exc_type is None:
-            LAUNCHES[self.kid] += 1
+            for kid in self.kids:
+                LAUNCHES[kid] += 1
 
 
-_COUNTS = {kid: _Count(kid) for kid in LAUNCHES}
+_COUNTS = {(kid,): _Count((kid,)) for kid in LAUNCHES}
 
 
-def counted(kid: str):
+def counted(*kids: str):
     """A launch wrapper's block, from its entry to the launch's return:
-    counts the launch in ``LAUNCHES[kid]`` when the block exits with no
-    error and, while spans are on, records it as span ``kernel.<kid>``
-    (the wrapper's host cost of one launch)."""
+    counts the launch in ``LAUNCHES`` under each of ``kids`` (the kernel's
+    id, then any route of it, as K7m's ``K7m_rows``) when the block exits
+    with no error and, while spans are on, records it as span
+    ``kernel.<kids[0]>`` (the wrapper's host cost of one launch)."""
     if spans.active():
-        return _CountedSpan(kid)
-    return _COUNTS[kid]
+        return _CountedSpan(kids)
+    count = _COUNTS.get(kids)
+    if count is None:
+        count = _COUNTS[kids] = _Count(kids)
+    return count
 
 
 def require_device(device) -> torch.device:
@@ -269,11 +272,6 @@ def library() -> ctypes.CDLL:
         lib.igcn_fused_topk_launch_shape.restype = None
         lib.igcn_fused_topk_scratch_words.argtypes = [ctypes.c_int] * 4
         lib.igcn_fused_topk_scratch_words.restype = ctypes.c_longlong
-        lib.igcn_gather_fwd_splits.argtypes = [ctypes.c_int] * 3
-        lib.igcn_gather_fwd_splits.restype = ctypes.c_int
-        lib.igcn_gather_fwd_launch_shape.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_int)]
-        lib.igcn_gather_fwd_launch_shape.restype = None
         lib.igcn_gather_bwd_launch_shape.argtypes = [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.igcn_gather_bwd_launch_shape.restype = None

@@ -14,28 +14,26 @@ uint32 on the CPU. Bits that reach 2**31 are built in int64 and wrapped;
 extracting a bit with an arithmetic ``>>`` and ``& 1`` is exact for every
 bit position of an int32. CUDA reads the same words as ``uint32_t``.
 
-``bbt_pair(wp, x1t, x2t)`` computes both directions in the transposed
-(d, n) layout of the JAX package:
+Every product is B @ X or B^T @ X on row-major (n, d) X, through one
+route (``_product``: the t1 body, the t2 body or, for a masked B^T @ X
+given B's transposed pack, ``TransposedPack``, K7m's rows route) and one
+autograd Function, whose gradient in X is the other orientation over the
+same words and, when masked, the same seed. The entry points are views
+over it, each counting its launches under its own id: ``bbt_pair(wp, x1t,
+x2t)``, the JAX package's transposed (d, n) pair,
 
     y1t (d, m) = (B @ X1)^T    from x1t (d, K)   -- kernel K1
     y2t (d, K) = (B^T @ X2)^T  from x2t (d, m)   -- kernel K2
 
-``bbt_pair_premasked(w1, w2, x1t, x2t)`` is the same pair over two
-(dropout-masked) operands; both are autograd functions whose backward is
-the pair with directions swapped. ``bb_matmul(wp, x, transpose)`` is
-B @ X or B^T @ X on row-major (n, d) X -- kernels K6/K7, which the
-propagation-cache build runs. ``bb_matmul_dropped(wp, x, seed, p,
-transpose)`` is the same product with edge dropout applied inside the
-kernels (K6m/K7m), as NGCF trains; given B's transposed pack
-(``TransposedPack``, ``transpose_pack``), its masked B^T @ X takes K7m's
-rows route (``mm_bwd_masked_rows``), a walk over the rows of B^T with one
-writer per output row. ``bbt_pair_dropped(wp, x1t, x2t, seed1,
-seed2, p)`` is the transposed pair with the same in-kernel dropout
-(K1m/K2m), which the kernel microbenchmark compares with the premasked
-pair. ``mask_words(wp, seed, p)`` applies the coordinate-hashed keep mask,
-bit-identical to the JAX package; ``mask_words_pair(wp, seed_a, seed_b,
-p)`` applies it under two seeds in one pass over the words (K8p), as the
-INMO feature aggregation masks B once for each direction.
+``bbt_pair_premasked(w1, w2, x1t, x2t)`` over two (dropout-masked)
+operands, the feature aggregation's training path; ``bbt_pair_dropped``
+with edge dropout inside the kernels (K1m/K2m); ``bb_matmul(wp, x,
+transpose)`` in X's own layout (K6/K7), as every propagation runs; and
+``bb_matmul_dropped(wp, x, seed, p, transpose, wt)`` with in-kernel
+dropout (K6m/K7m), as NGCF trains. ``mask_words(wp, seed, p)`` applies the
+coordinate-hashed keep mask, bit-identical to the JAX package;
+``mask_words_pair`` applies it under two seeds in one pass over the words
+(K8p), as the INMO feature aggregation masks B once for each direction.
 
 X operands are rounded to bf16 and summed in f32, as the JAX kernels do.
 CUDA tensors go to the hand-written kernels in ``csrc/`` (``bbt_pair.cu``,
@@ -128,7 +126,7 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(m, ntiles * TK).to(torch.float32)
 
 
-# -- the transposed pair: plain versions --------------------------------------
+# -- the product's plain versions: the kernels' oracles ----------------------
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +143,24 @@ def t2_plain(wp: torch.Tensor, x2t: torch.Tensor) -> torch.Tensor:
     return _bf16_round(x2t) @ unpack_bits(wp)
 
 
-# -- the transposed pair: CUDA kernels ----------------------------------------
+def mm_fwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Y (m, d) = B @ X with X (K, d) rounded to bf16, f32 sums."""
+    return unpack_bits(wp) @ _bf16_round(x)
+
+
+def mm_bwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Y (K, d) = B^T @ X with X (m, d) rounded to bf16, f32 sums."""
+    return unpack_bits(wp).T @ _bf16_round(x)
+
+
+# -- the product: one route, one launch helper per body -----------------------
+
+# Launch ids of a family's two orientations, (B @ X, B^T @ X): the pair in
+# the JAX package's transposed layout, and bb_matmul in X's own. Each public
+# entry point passes its family's, so that it counts, and records its span,
+# under its own id.
+_PAIR_IDS, _PAIR_MASKED_IDS = ("K1", "K2"), ("K1m", "K2m")
+_MM_IDS, _MM_MASKED_IDS = ("K6", "K7"), ("K6m", "K7m")
 
 
 def _check_words(wp: torch.Tensor):
@@ -160,133 +175,192 @@ def _check_words(wp: torch.Tensor):
                          f"of {TKP}")
 
 
-def _check_pair_operands(wp: torch.Tensor, xt: torch.Tensor, n: int, what: str):
-    _check_words(wp)
-    if xt.device != wp.device:
-        raise ValueError(f"{what} is on {xt.device}, wp on {wp.device}")
-    if not xt.is_floating_point() or xt.dim() != 2 or xt.shape[1] != n:
-        raise ValueError(f"{what} must be a float (d, {n}) tensor, got "
-                         f"{tuple(xt.shape)} {xt.dtype}")
+def _check_operand(words: torch.Tensor, x: torch.Tensor, n_in: int):
+    """X of a product on the card: a float (n_in, d) tensor beside the
+    words."""
+    _check_words(words)
+    if x.device != words.device:
+        raise ValueError(f"x is on {x.device}, the words on {words.device}")
+    if not x.is_floating_point() or x.dim() != 2 or x.shape[0] != n_in:
+        raise ValueError(f"x must be a float ({n_in}, d) tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
 
 
-def _bf16_rows(xt: torch.Tensor, width: int | None = None) -> torch.Tensor:
-    """(d, n) operand -> contiguous (n, width) bf16, the rows the kernels
-    read; columns past d (``width`` defaults to d) are zeros."""
-    d, n = xt.shape
-    if width is None or width == d:
-        return torch.empty((n, d), dtype=torch.bfloat16, device=xt.device).copy_(xt.T)
-    out = torch.zeros((n, width), dtype=torch.bfloat16, device=xt.device)
-    out[:, :d].copy_(xt.T)
-    return out
-
-
-# Both product bodies read X's rows as 16-byte vectors: their wrappers pad d
-# to a multiple of this with zero columns, which the bodies sum and the
-# results leave out.
+# Every product body reads X's rows as 16-byte vectors: the launch helpers
+# pad d to a multiple of this with zero columns, which the bodies sum and
+# the results leave out.
 _D_ALIGN = 8
 
 
-def _t1_launch(entry: str, kid: str, wp: torch.Tensor, xt: torch.Tensor,
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """(n, d) operand -> the contiguous bf16 rows the kernels read, d
+    padded to a multiple of _D_ALIGN with zero columns."""
+    n, d = x.shape
+    width = pad_to(d, _D_ALIGN)
+    if width == d:
+        return torch.empty((n, d), dtype=torch.bfloat16, device=x.device).copy_(x)
+    out = torch.zeros((n, width), dtype=torch.bfloat16, device=x.device)
+    out[:, :d].copy_(x)
+    return out
+
+
+def _t1_launch(kid: str, wp: torch.Tensor, x: torch.Tensor,
                mask) -> torch.Tensor:
-    """Y (m, d) = B @ X through a t1-body entry, X given as (d, K); ``mask``
-    is () or (seed, thr)."""
+    """Y (m, d) = B @ X, X (K, d), through the t1 body, counted as
+    ``kid``; ``mask`` is () or (seed, thr)."""
+    _check_operand(wp, x, wp.shape[1] * 32)
     with _build.counted(kid):
         m, kw = wp.shape
-        d = xt.shape[0]
-        x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
-        y = torch.empty((m, x.shape[1]), dtype=torch.float32, device=wp.device)
-        _build.launch(entry, wp, x, y, m, kw, x.shape[1], *mask)
-    return y if x.shape[1] == d else y[:, :d]
+        xb = _bf16_rows(x)
+        dp = xb.shape[1]
+        y = torch.empty((m, dp), dtype=torch.float32, device=wp.device)
+        _build.launch("igcn_t1_masked" if mask else "igcn_t1", wp, xb, y, m,
+                      kw, dp, *mask)
+    return y if dp == x.shape[1] else y[:, :x.shape[1]]
 
 
 def t2_splits(m: int, kw: int, d: int) -> int:
     """Row chunks of the t2 body (K2/K2m/K7/K7m) at this shape: the number
-    of partial (K, d) f32 slabs its wrapper allocates (none when 1)."""
+    of partial (K, d) f32 slabs its launch allocates (none when 1)."""
     return _build.library().igcn_t2_splits(m, kw, pad_to(d, _D_ALIGN))
 
 
-def _t2_launch(entry: str, kid: str, wp: torch.Tensor, xt: torch.Tensor,
-               mask, splits: int | None = None) -> torch.Tensor:
-    """Y (K, d) = B^T @ X through a t2-body entry, X given as (d, m);
-    ``mask`` is () or (seed, thr). ``splits`` (row chunks) defaults to
-    ``t2_splits``; another value is for timing the choice."""
+def _t2_launch(kid: str, wp: torch.Tensor, x: torch.Tensor, mask,
+               splits: int | None = None) -> torch.Tensor:
+    """Y (K, d) = B^T @ X, X (m, d), through the t2 body, counted as
+    ``kid``; ``mask`` is () or (seed, thr). ``splits`` (row chunks)
+    defaults to ``t2_splits``; another value is for timing the choice."""
+    _check_operand(wp, x, wp.shape[0])
     with _build.counted(kid):
         m, kw = wp.shape
-        d = xt.shape[0]
-        x = _bf16_rows(xt, pad_to(d, _D_ALIGN))
-        dp = x.shape[1]
-        splits = t2_splits(m, kw, d) if splits is None else splits
+        xb = _bf16_rows(x)
+        dp = xb.shape[1]
+        splits = t2_splits(m, kw, dp) if splits is None else splits
         y = torch.empty((kw * 32, dp), dtype=torch.float32, device=wp.device)
         part = y if splits == 1 else torch.empty((splits, kw * 32, dp),
                                                  dtype=torch.float32,
                                                  device=wp.device)
-        _build.launch(entry, wp, x, part, y, m, kw, dp, splits, *mask)
-    return y if dp == d else y[:, :d]
+        _build.launch("igcn_t2_masked" if mask else "igcn_t2", wp, xb, part,
+                      y, m, kw, dp, splits, *mask)
+    return y if dp == x.shape[1] else y[:, :x.shape[1]]
 
 
-def _t1_cuda(entry: str, kid: str, wp: torch.Tensor, x1t: torch.Tensor,
-             *mask) -> torch.Tensor:
-    """Launch a t1 entry; ``mask`` is (seed, thr) for the masked one."""
-    _check_pair_operands(wp, x1t, wp.shape[1] * 32, "x1t")
-    return _t1_launch(entry, kid, wp, x1t, mask).T
+def _rows_launch(kid: str, wt: "TransposedPack", x: torch.Tensor,
+                 mask) -> torch.Tensor:
+    """Y (k, d) = (B * M)^T @ X, X (m, d), through K7m's rows route over
+    B's transposed pack, counted as ``kid`` and as K7m_rows; ``mask`` is
+    (seed, thr)."""
+    _check_operand(wt.words, x, wt.m)
+    mt, kwt = wt.words.shape
+    if wt.order.dtype != torch.int32 or wt.order.shape != (mt,):
+        raise ValueError("the pack's order must be an int32 row permutation")
+    with _build.counted(kid, "K7m_rows"):
+        xb = _bf16_rows(x)
+        dp = xb.shape[1]
+        y = torch.empty((wt.k, dp), dtype=torch.float32, device=x.device)
+        _build.launch("igcn_bb_bwd_masked_rows", wt.words, wt.order, xb, y, mt,
+                      wt.k, kwt, dp, wt.heavy, *mask)
+    return y if dp == x.shape[1] else y[:, :x.shape[1]]
 
 
-def _t2_cuda(entry: str, kid: str, wp: torch.Tensor, x2t: torch.Tensor,
-             *mask) -> torch.Tensor:
-    """Launch a t2 entry; ``mask`` is (seed, thr) for the masked one."""
-    _check_pair_operands(wp, x2t, wp.shape[0], "x2t")
-    return _t2_launch(entry, kid, wp, x2t, mask).T
+def _product(wp: Optional[torch.Tensor], x: torch.Tensor, transpose: bool,
+             mask, wt: Optional["TransposedPack"], ids) -> torch.Tensor:
+    """B @ X, or B^T @ X with ``transpose``, X row-major, under the keep
+    mask of ``mask`` = (u32 seed, p) when given: where every bit-packed
+    product picks its route. A masked B^T @ X given ``wt``, B's transposed
+    pack, takes the rows route (``wp`` may then be None); CPU tensors take
+    the plain versions, CUDA tensors the t1 body (B @ X) or the t2 body.
+    ``ids`` are the caller's family's launch ids, (B @ X's, B^T @ X's)."""
+    rows = transpose and mask is not None and wt is not None
+    if not _build.on_cuda(wt.words if rows else wp):
+        if rows:
+            return mm_bwd_masked_rows_plain(wt, x, *mask)
+        if mask is None:
+            return mm_bwd_plain(wp, x) if transpose else mm_fwd_plain(wp, x)
+        plain = mm_bwd_masked_plain if transpose else mm_fwd_masked_plain
+        return plain(wp, x, *mask)
+    kid = ids[transpose]
+    args = () if mask is None else (mask[0], _threshold_u8(mask[1]))
+    if rows:
+        return _rows_launch(kid, wt, x, args)
+    if transpose:
+        return _t2_launch(kid, wp, x, args)
+    return _t1_launch(kid, wp, x, args)
+
+
+class _ProductFn(torch.autograd.Function):
+    """``_product``, differentiable in x: its gradient is the other
+    orientation over the same words and, when masked, the same seed, so the
+    backward sees the forward's drops exactly (the JAX package's
+    ``_bbtp_bwd``, ``_bbtd_bwd`` and ``bb_matmul``'s VJPs). Cotangents are
+    rounded to bf16 like the forward operands."""
+
+    @staticmethod
+    def forward(ctx, wp, x, transpose: bool, mask, wt, ids):
+        ctx.save_for_backward(wp)
+        ctx.route = (transpose, mask, wt, ids)
+        return _product(wp, x, transpose, mask, wt, ids)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (wp,) = ctx.saved_tensors
+        transpose, mask, wt, ids = ctx.route
+        return (None, _product(wp, ct, not transpose, mask, wt, ids), None,
+                None, None, None)
+
+
+def _mask(seed, p) -> tuple[int, float]:
+    return _check_seed(seed), float(p)
+
+
+# -- the transposed pair (K1/K2, K1m/K2m): views over the product -------------
 
 
 def t1(wp: torch.Tensor, x1t: torch.Tensor) -> torch.Tensor:
-    """K1: y1t (d, m) = (B @ X1)^T. CUDA tensors launch the kernel; CPU
-    tensors take ``t1_plain``."""
-    if _build.on_cuda(wp):
-        return _t1_cuda("igcn_t1", "K1", wp, x1t)
-    return t1_plain(wp, x1t)
+    """K1: y1t (d, m) = (B @ X1)^T. CUDA tensors launch the t1 body; CPU
+    tensors take the plain version."""
+    return _product(wp, x1t.T, False, None, None, _PAIR_IDS).T
 
 
 def t2(wp: torch.Tensor, x2t: torch.Tensor) -> torch.Tensor:
     """K2: y2t (d, K) = (B^T @ X2)^T over the same packed words, with no
     transposed copy of B."""
-    if _build.on_cuda(wp):
-        return _t2_cuda("igcn_t2", "K2", wp, x2t)
-    return t2_plain(wp, x2t)
+    return _product(wp, x2t.T, True, None, None, _PAIR_IDS).T
 
 
-class _PairFn(torch.autograd.Function):
-    """y1t = t1(W1, x1t), y2t = t2(W2, x2t). The backward swaps the
-    directions, and the operands move with them: dx1t (d, K) = dy1t @ W1 is
-    the t2 orientation on W1, dx2t (d, m) = (W2 @ dy2t^T)^T the t1
-    orientation on W2 (``igcn_cf_tpu/kernels/bitpack.py`` ``_bbtp_bwd``).
-    Cotangents are rounded to bf16 like the forward operands."""
+def t1_masked(wp: torch.Tensor, x1t: torch.Tensor, seed: int,
+              p: float) -> torch.Tensor:
+    """K1m: y1t (d, m) = ((B * M) @ X1)^T, the keep mask M of ``seed`` and
+    ``p`` applied to each word inside the kernel. Equal, bit for bit, to K1
+    over ``mask_words(wp, seed, p)``."""
+    return _product(wp, x1t.T, False, _mask(seed, p), None,
+                    _PAIR_MASKED_IDS).T
 
-    @staticmethod
-    def forward(ctx, w1, w2, x1t, x2t):
-        ctx.save_for_backward(w1, w2)
-        return t1(w1, x1t), t2(w2, x2t)
 
-    @staticmethod
-    def backward(ctx, dy1t, dy2t):
-        w1, w2 = ctx.saved_tensors
-        dx1t = t2(w1, dy1t) if ctx.needs_input_grad[2] else None
-        dx2t = t1(w2, dy2t) if ctx.needs_input_grad[3] else None
-        return None, None, dx1t, dx2t
+def t2_masked(wp: torch.Tensor, x2t: torch.Tensor, seed: int,
+              p: float) -> torch.Tensor:
+    """K2m: y2t (d, K) = ((B * M)^T @ X2)^T over the keep decisions of K1m
+    under the same seed."""
+    return _product(wp, x2t.T, True, _mask(seed, p), None,
+                    _PAIR_MASKED_IDS).T
 
 
 def bbt_pair_premasked(w1: torch.Tensor, w2: torch.Tensor, x1t: torch.Tensor,
                        x2t: torch.Tensor):
     """The transposed pair over two packed operands, typically ``mask_words``
     outputs: y1t (d, m) = (W1 @ x1t^T)^T, y2t (d, K) = (W2^T @ x2t^T)^T,
-    differentiable in x1t and x2t. The feature aggregation's training path."""
-    return _PairFn.apply(w1, w2, x1t, x2t)
+    differentiable in x1t and x2t: dx1t (d, K) = dy1t @ W1 is the t2
+    orientation on W1, dx2t the t1 orientation on W2. The feature
+    aggregation's training path."""
+    return (_ProductFn.apply(w1, x1t.T, False, None, None, _PAIR_IDS).T,
+            _ProductFn.apply(w2, x2t.T, True, None, None, _PAIR_IDS).T)
 
 
 def bbt_pair(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
     """Both directions of the bit-packed operator in transposed layout:
     y1t (d, m) = (B @ x1t^T)^T, y2t (d, K) = (B^T @ x2t^T)^T, differentiable
     in x1t and x2t (the backward is the same pair, directions swapped)."""
-    return _PairFn.apply(wp, wp, x1t, x2t)
+    return bbt_pair_premasked(wp, wp, x1t, x2t)
 
 
 def bbt_pair_plain(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
@@ -294,145 +368,39 @@ def bbt_pair_plain(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor):
     return t1_plain(wp, x1t), t2_plain(wp, x2t)
 
 
-# -- the transposed pair with in-kernel dropout (K1m/K2m) ---------------------
-
-
-def t1_masked(wp: torch.Tensor, x1t: torch.Tensor, seed: int,
-              p: float) -> torch.Tensor:
-    """K1m: y1t (d, m) = ((B * M) @ X1)^T, the keep mask M of ``seed`` and
-    ``p`` applied to each word inside the kernel. Equal, bit for bit, to K1
-    over ``mask_words(wp, seed, p)``. CPU tensors take ``t1_masked_plain``."""
-    seed = _check_seed(seed)
-    if _build.on_cuda(wp):
-        return _t1_cuda("igcn_t1_masked", "K1m", wp, x1t, seed,
-                        _threshold_u8(p))
-    return t1_masked_plain(wp, x1t, seed, p)
-
-
-def t2_masked(wp: torch.Tensor, x2t: torch.Tensor, seed: int,
-              p: float) -> torch.Tensor:
-    """K2m: y2t (d, K) = ((B * M)^T @ X2)^T over the keep decisions of K1m
-    under the same seed."""
-    seed = _check_seed(seed)
-    if _build.on_cuda(wp):
-        return _t2_cuda("igcn_t2_masked", "K2m", wp, x2t, seed,
-                        _threshold_u8(p))
-    return t2_masked_plain(wp, x2t, seed, p)
-
-
-class _DroppedPairFn(torch.autograd.Function):
-    """y1t = t1_masked(B, x1t, seed1), y2t = t2_masked(B, x2t, seed2). The
-    backward swaps the directions and each cotangent keeps its own
-    direction's seed: dx2t, dx1t = pair(B, dy2t, dy1t, seed2, seed1)
-    (``igcn_cf_tpu/kernels/bitpack.py`` ``_bbtd_bwd``). The masks are
-    functions of (seed, row, word), so the backward sees the forward's
-    drops exactly."""
-
-    @staticmethod
-    def forward(ctx, wp, x1t, x2t, seed1, seed2, p):
-        ctx.save_for_backward(wp)
-        ctx.mask = (seed1, seed2, p)
-        return t1_masked(wp, x1t, seed1, p), t2_masked(wp, x2t, seed2, p)
-
-    @staticmethod
-    def backward(ctx, dy1t, dy2t):
-        (wp,) = ctx.saved_tensors
-        seed1, seed2, p = ctx.mask
-        dx1t = t2_masked(wp, dy1t, seed1, p) if ctx.needs_input_grad[1] else None
-        dx2t = t1_masked(wp, dy2t, seed2, p) if ctx.needs_input_grad[2] else None
-        return None, dx1t, dx2t, None, None, None
-
-
 def bbt_pair_dropped(wp: torch.Tensor, x1t: torch.Tensor, x2t: torch.Tensor,
                      seed1: int, seed2: int, p: float):
-    """The transposed pair with edge dropout inside the kernels and without
-    the 1/(1-p) rescale: direction 1 drops with the u32 ``seed1``, direction
-    2 with ``seed2`` (the JAX package's ``bbt_pair_dropped`` given the seeds
-    its keys yield). Differentiable in x1t and x2t."""
-    return _DroppedPairFn.apply(wp, x1t, x2t, _check_seed(seed1),
-                                _check_seed(seed2), float(p))
+    """The transposed pair with edge dropout inside the kernels (K1m/K2m)
+    and without the 1/(1-p) rescale: direction 1 drops with the u32
+    ``seed1``, direction 2 with ``seed2`` (the JAX package's
+    ``bbt_pair_dropped`` given the seeds its keys yield). Differentiable in
+    x1t and x2t; each cotangent keeps its own direction's seed, and the
+    masks are functions of (seed, row, word), so the backward sees the
+    forward's drops exactly."""
+    return (_ProductFn.apply(wp, x1t.T, False, _mask(seed1, p), None,
+                             _PAIR_MASKED_IDS).T,
+            _ProductFn.apply(wp, x2t.T, True, _mask(seed2, p), None,
+                             _PAIR_MASKED_IDS).T)
 
 
-# -- bb_matmul: the original-layout pair (K6/K7), unmasked --------------------
-
-
-def mm_fwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y (m, d) = B @ X with X (K, d) rounded to bf16, f32 sums."""
-    return unpack_bits(wp) @ _bf16_round(x)
-
-
-def mm_bwd_plain(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y (K, d) = B^T @ X with X (m, d) rounded to bf16, f32 sums."""
-    return unpack_bits(wp).T @ _bf16_round(x)
-
-
-def _mm_cuda(entry: str, kid: str, wp: torch.Tensor, x: torch.Tensor,
-             transpose: bool, *mask) -> torch.Tensor:
-    """Launch a bb_matmul entry: B @ X (t1 body) or, with ``transpose``,
-    B^T @ X (t2 body); ``mask`` is (seed, thr) for the masked entries."""
-    _check_words(wp)
-    if x.device != wp.device:
-        raise ValueError(f"x is on {x.device}, wp on {wp.device}")
-    n_in = wp.shape[0] if transpose else wp.shape[1] * 32
-    if not x.is_floating_point() or x.dim() != 2 or x.shape[0] != n_in:
-        raise ValueError(f"x must be a float ({n_in}, d) tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if transpose:
-        return _t2_launch(entry, kid, wp, x.T, mask)
-    return _t1_launch(entry, kid, wp, x.T, mask)
+# -- bb_matmul: the product in X's own layout (K6/K7, K6m/K7m) ----------------
 
 
 def mm_fwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K6: Y (m, d) = B @ X, X (K, d) in its own row-major layout."""
-    if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_fwd", "K6", wp, x, False)
-    return mm_fwd_plain(wp, x)
+    return _product(wp, x, False, None, None, _MM_IDS)
 
 
 def mm_bwd(wp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K7: Y (K, d) = B^T @ X, X (m, d), with no transposed copy of B."""
-    if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_bwd", "K7", wp, x, True)
-    return mm_bwd_plain(wp, x)
-
-
-def _mm(wp, x, transpose: bool, mask, wt=None):
-    """B @ X (K6), B^T @ X (K7), or their masked variants (K6m/K7m) when
-    ``mask`` is (seed, p); K7m takes the rows route when ``wt``, B's
-    transposed pack, is given."""
-    if mask is None:
-        return mm_bwd(wp, x) if transpose else mm_fwd(wp, x)
-    if not transpose:
-        return mm_fwd_masked(wp, x, *mask)
-    if wt is None:
-        return mm_bwd_masked(wp, x, *mask)
-    return mm_bwd_masked_rows(wt, x, *mask)
-
-
-class _MatmulFn(torch.autograd.Function):
-    """The product in one orientation; its gradient in x is the other
-    orientation over the same words and, when masked, the same seed, so the
-    backward sees the forward's drops exactly. ``wt`` (or None), B's
-    transposed pack, routes the masked B^T @ X of either pass."""
-
-    @staticmethod
-    def forward(ctx, wp, x, transpose: bool, mask, wt):
-        ctx.save_for_backward(wp)
-        ctx.transpose, ctx.mask, ctx.wt = transpose, mask, wt
-        return _mm(wp, x, transpose, mask, wt)
-
-    @staticmethod
-    def backward(ctx, ct):
-        (wp,) = ctx.saved_tensors
-        return (None, _mm(wp, ct, not ctx.transpose, ctx.mask, ctx.wt), None,
-                None, None)
+    return _product(wp, x, True, None, None, _MM_IDS)
 
 
 def bb_matmul(wp: torch.Tensor, x: torch.Tensor,
               transpose: bool = False) -> torch.Tensor:
     """B @ x, or B^T @ x with ``transpose``, for the 1-bit-packed B; the
     gradient in x runs through the other orientation over the same words."""
-    return _MatmulFn.apply(wp, x, transpose, None, None)
+    return _ProductFn.apply(wp, x, transpose, None, None, _MM_IDS)
 
 
 # -- edge-dropout keep mask (bit-identical to the JAX package) ----------------
@@ -559,7 +527,7 @@ def mask_words_pair(wp: torch.Tensor, seed_a: int, seed_b: int,
     return out_a, out_b
 
 
-# -- bb_matmul_dropped: the original-layout pair with in-kernel dropout -------
+# -- the product with in-kernel dropout: plain versions and entries ----------
 
 # Rows of B per step of the masked plain versions: the unpacked keep mask of
 # 1,024 rows of the Gowalla-scale B is 46M entries, a few GB of int64 hash
@@ -617,21 +585,13 @@ def mm_fwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
     """K6m: Y (m, d) = (B * M) @ X, the keep mask M of ``seed`` and ``p``
     applied to each word inside the kernel. Equal, bit for bit, to K6 over
     ``mask_words(wp, seed, p)``."""
-    seed = _check_seed(seed)
-    if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_fwd_masked", "K6m", wp, x, False, seed,
-                        _threshold_u8(p))
-    return mm_fwd_masked_plain(wp, x, seed, p)
+    return _product(wp, x, False, _mask(seed, p), None, _MM_MASKED_IDS)
 
 
 def mm_bwd_masked(wp: torch.Tensor, x: torch.Tensor, seed: int,
                   p: float) -> torch.Tensor:
     """K7m: Y (K, d) = (B * M)^T @ X over the same keep decisions as K6m."""
-    seed = _check_seed(seed)
-    if _build.on_cuda(wp):
-        return _mm_cuda("igcn_bb_bwd_masked", "K7m", wp, x, True, seed,
-                        _threshold_u8(p))
-    return mm_bwd_masked_plain(wp, x, seed, p)
+    return _product(wp, x, True, _mask(seed, p), None, _MM_MASKED_IDS)
 
 
 def bb_matmul_dropped(wp: torch.Tensor, x: torch.Tensor, seed: int, p: float,
@@ -645,7 +605,8 @@ def bb_matmul_dropped(wp: torch.Tensor, x: torch.Tensor, seed: int, p: float,
     given the seed its key yields). Given ``wt``, B's transposed pack, the
     masked B^T @ x of the forward or the backward takes K7m's rows route
     (``mm_bwd_masked_rows``)."""
-    return _MatmulFn.apply(wp, x, transpose, (int(seed), float(p)), wt)
+    return _ProductFn.apply(wp, x, transpose, _mask(seed, p), wt,
+                            _MM_MASKED_IDS)
 
 
 # -- K7m's rows route: B^T @ X over a transposed pack -------------------------
@@ -733,27 +694,7 @@ def mm_bwd_masked_rows(wt: TransposedPack, x: torch.Tensor, seed: int,
     another order. CUDA tensors launch the rows route of
     ``csrc/bbt_pair.cu`` (counted as K7m and as K7m_rows); CPU tensors take
     ``mm_bwd_masked_rows_plain``."""
-    seed = _check_seed(seed)
-    if not _build.on_cuda(wt.words):
-        return mm_bwd_masked_rows_plain(wt, x, seed, p)
-    _check_words(wt.words)
-    if x.device != wt.words.device:
-        raise ValueError(f"x is on {x.device}, the pack on {wt.words.device}")
-    if not x.is_floating_point() or x.dim() != 2 or x.shape[0] != wt.m:
-        raise ValueError(f"x must be a float ({wt.m}, d) tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    mt, kwt = wt.words.shape
-    if wt.order.dtype != torch.int32 or wt.order.shape != (mt,):
-        raise ValueError("the pack's order must be an int32 row permutation")
-    with _build.counted("K7m"):
-        d = x.shape[1]
-        xb = _bf16_rows(x.T, pad_to(d, _D_ALIGN))
-        dp = xb.shape[1]
-        y = torch.empty((wt.k, dp), dtype=torch.float32, device=x.device)
-        _build.launch("igcn_bb_bwd_masked_rows", wt.words, wt.order, xb, y, mt,
-                      wt.k, kwt, dp, wt.heavy, seed, _threshold_u8(p))
-    _build.LAUNCHES["K7m_rows"] += 1
-    return y if dp == d else y[:, :d]
+    return _product(None, x, True, _mask(seed, p), wt, _MM_MASKED_IDS)
 
 
 def packed_lookup(packed: torch.Tensor, rows: torch.Tensor,

@@ -10,10 +10,11 @@ A + I:
     du, di = max(degree, 1)^-1/2;
     (A + I) @ X / (deg + 1) = [ (B @ X_i + X_u) / (deg_u + 1) ; ... ].
 
-Both directions of one sym-norm step run as one ``bbt_pair`` call (kernels
-K1/K2) in the transposed (d, n) layout of the JAX package;
-``sym_norm_propagate`` and ``ngcf_propagate`` run in the original (n, d)
-layout through ``bb_matmul`` (K6/K7), as the propagation-cache build does.
+The INMO feature aggregation runs both directions as one ``bbt_pair`` call
+(kernels K1/K2) in the transposed (d, n) layout of the JAX package;
+``sym_norm_propagate`` (one step of every propagation, the
+propagation-cache build's included) and ``ngcf_propagate`` run in the
+original (n, d) layout through ``bb_matmul`` (K6/K7).
 Every operator here is differentiable. Edge dropout draws are explicit
 arguments (``FeatDrop``), drawn by the model: the INMO feature aggregation
 masks B once per direction (``mask_words_pair``, one pass for both), NGCF
@@ -57,12 +58,6 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     if x.shape[0] == n:
         return x
     return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
-
-
-def _pad_cols(xt: torch.Tensor, n: int) -> torch.Tensor:
-    if xt.shape[1] == n:
-        return xt
-    return torch.cat([xt, xt.new_zeros((xt.shape[0], n - xt.shape[1]))], dim=1)
 
 
 @dataclass(frozen=True)
@@ -172,32 +167,15 @@ def sym_norm_propagate(g: BipartiteDense, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([su * g.mm_ui(si * xi), si * g.mm_iu(su * xu)])
 
 
-def _sym_norm_propagate_t(g: BipartiteDense, xt: torch.Tensor) -> torch.Tensor:
-    """One D^-1/2 A D^-1/2 step in transposed (d, n) layout: both directions
-    ride one ``bbt_pair`` call."""
-    su = torch.rsqrt(torch.clamp(g.deg_u, min=1.0))[None, :]
-    si = torch.rsqrt(torch.clamp(g.deg_i, min=1.0))[None, :]
-    xu_t, xi_t = xt[:, : g.n_users], xt[:, g.n_users :]
-    y1t, y2t = bbt_pair(
-        g.B,
-        _pad_cols(si * xi_t, g.cols_padded),
-        _pad_cols(su * xu_t, g.rows_padded),
-    )
-    return torch.cat(
-        [su * y1t[:, : g.n_users], si * y2t[:, : g.n_items]], dim=1
-    )
-
-
 def sym_norm_propagate_mean(
     g: BipartiteDense, x0: torch.Tensor, n_layers: int
 ) -> torch.Tensor:
     """Mean over layers 0..K of sym-norm propagation, (n, d) in and out."""
-    xt = x0.T
-    acc = xt
+    x = acc = x0
     for _ in range(n_layers):
-        xt = _sym_norm_propagate_t(g, xt)
-        acc = acc + xt
-    return (acc / float(n_layers + 1)).T
+        x = sym_norm_propagate(g, x)
+        acc = acc + x
+    return acc / float(n_layers + 1)
 
 
 class FeatDrop(NamedTuple):

@@ -155,6 +155,7 @@ def build_prop_cache_cols(g: BipartiteDense, n_layers: int, col_start: int,
 # -- gather-matmul pair (K3/K4) -----------------------------------------------
 
 _TILE = 64  # the kernels' d tile: d is padded to a multiple of it
+K3_TR = 128  # K3's gathered rows a block (kK3Tr in csrc/pcache_4d.cu)
 
 
 def gather_fwd_plain(p: torch.Tensor, rows: torch.Tensor,
@@ -187,6 +188,22 @@ def _check_gather(p, rows, x, x_rows, what):
         raise ValueError(f"{what} must be ({x_rows}, d), got {tuple(x.shape)}")
 
 
+def _check_4d(p4, rows, x, x_rows, what, tr):
+    """The operands of a launch over P's 4-D view (n, NJ, sub, 128)."""
+    if (p4.dtype != torch.bfloat16 or p4.dim() != 4 or p4.shape[3] != 128
+            or not p4.is_contiguous()):
+        raise ValueError("P4 must be a contiguous (n, NJ, sub, 128) bf16 tensor")
+    for name, t in (("rows", rows), (what, x)):
+        if t.device != p4.device:
+            raise ValueError(f"{name} is on {t.device}, P4 on {p4.device}")
+    if rows.dim() != 1 or rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError("rows must be a 1-D integer tensor")
+    if x.dim() != 2 or x.shape[0] != x_rows:
+        raise ValueError(f"{what} must be ({x_rows}, d), got {tuple(x.shape)}")
+    if not (16 <= tr <= 256 and tr % 16 == 0):
+        raise ValueError(f"TR {tr} must be a multiple of 16 in [16, 256]")
+
+
 def _d_padded(x: torch.Tensor) -> torch.Tensor:
     """x as bf16 with d zero-padded to a multiple of the kernel tile: x
     itself where it already is so (contiguous, 16-byte aligned), else a
@@ -211,8 +228,9 @@ def _rows32(rows: torch.Tensor) -> torch.Tensor:
     return r
 
 
-# K3's and K4's launch at a shape, as igcn_gather_{fwd,bwd}_launch_shape
-# write it: K3 (T1's body) splits its columns in S ranges, K4 has no split
+# K3's and K4's launch at a shape, as igcn_fused_fwd_launch_shape (at TR
+# 128) and igcn_gather_bwd_launch_shape write it: K3 (T1's body) splits its
+# columns in S ranges, K4 has no split
 LAUNCH_SHAPE_KEYS = {
     "K3": ("grid_x", "splits", "d_tiles", "threads", "smem_bytes", "stages",
            "blocks_per_sm", "max_splits"),
@@ -226,28 +244,47 @@ def gather_launch_shape(kid: str, r: int, npad: int, d: int) -> dict:
     the current card: ``LAUNCH_SHAPE_KEYS[kid]`` -> int."""
     keys = LAUNCH_SHAPE_KEYS[kid]
     shape = (ctypes.c_int * len(keys))()
-    if kid == "K3":
-        _build.library().igcn_gather_fwd_launch_shape(r, npad, d, shape)
+    if kid == "K3":  # T1's launch at TR 128
+        _build.library().igcn_fused_fwd_launch_shape(r, npad, d, K3_TR, shape)
     else:
         _build.library().igcn_gather_bwd_launch_shape(npad, d, shape)
     return dict(zip(keys, shape))
 
 
-def _gather_fwd_cuda(p, rows, x0b):
-    with _build.counted("K3"):
-        _check_gather(p, rows, x0b, p.shape[1], "x0")
-        n, npad = p.shape
-        r, d = rows.shape[0], x0b.shape[1]
-        xb = _d_padded(x0b)
+def fwd_body_launch(entry: str, kid: str, p: torch.Tensor, rows: torch.Tensor,
+                    x0: torch.Tensor, tr: int = K3_TR, *extra: int,
+                    splits: int | None = None) -> torch.Tensor:
+    """(R, d) f32 = P[rows] @ X0 through the forward gather body
+    (``fused_fwd_4d_kernel``) by C entry ``entry``, counted as ``kid``. P
+    is the row-major (n, npad) cache for K3's entry, which runs at TR 128,
+    or its 4-D view (n, NJ, sub, 128) for T1's and T3's, which take ``tr``
+    and, after S, the ``extra`` ints. A block owns ``tr`` gathered rows and
+    one of S column ranges (the body's own choice at this shape; the tools
+    give ``splits`` only to time it); the S partial slabs are summed in
+    order, so two launches are bit-equal."""
+    with _build.counted(kid):
+        if p.dim() == 4:
+            npad = p.shape[1] * p.shape[2] * 128
+            _check_4d(p, rows, x0, npad, "x0", tr)
+            geometry, tail = (p.shape[0], p.shape[1], p.shape[2] * 128), (tr,)
+        else:
+            _check_gather(p, rows, x0, p.shape[1], "x0")
+            npad = p.shape[1]
+            geometry, tail = (p.shape[0], npad), ()
+        r, d = rows.shape[0], x0.shape[1]
+        xb = _d_padded(x0)
         dpad = xb.shape[1]
-        splits = _build.splits("igcn_gather_fwd_splits", p.device.index, r,
-                               npad, dpad)
+        if splits is None:
+            splits = _build.splits("igcn_fused_fwd_splits", p.device.index, r,
+                                   npad, dpad, tr)
+        if not 1 <= splits <= npad // _TILE:
+            raise ValueError(f"splits {splits} must be in [1, {npad // _TILE}]")
         out = torch.empty((r, dpad), dtype=torch.float32, device=p.device)
         part = out if splits == 1 else torch.empty((splits, r, dpad),
                                                    dtype=torch.float32,
                                                    device=p.device)
-        _build.launch("igcn_gather_fwd", p, _rows32(rows), xb, part, out, n,
-                      npad, r, dpad, splits)
+        _build.launch(entry, p, _rows32(rows), xb, part, out, *geometry, r,
+                      dpad, *tail, splits, *extra)
     return out if dpad == d else out[:, :d]
 
 
@@ -270,7 +307,7 @@ def gather_fwd(p: torch.Tensor, rows: torch.Tensor,
     R. CUDA tensors launch T1's body at TR 128 (``csrc/pcache_4d.cu``,
     ``igcn_gather_fwd``); CPU tensors take the plain version."""
     if _build.on_cuda(p):
-        return _gather_fwd_cuda(p, rows, x0b)
+        return fwd_body_launch("igcn_gather_fwd", "K3", p, rows, x0b)
     return gather_fwd_plain(p, rows, x0b)
 
 
@@ -350,7 +387,7 @@ def measure_engines_ms(bip: BipartiteDense, p: torch.Tensor, n_layers: int,
                        d: int, batch_size: int) -> dict:
     """Milliseconds of the step piece where the engines differ, propagation
     forward and backward: K3+K4 on 3 * batch rows of P, against the K-layer
-    bit-packed recompute (K1/K2 forward and backward). Median of CUDA-event
+    bit-packed recompute (K6/K7 forward and backward). Median of CUDA-event
     timed calls after warm-up (``utils/timing.cuda_ms``)."""
     n = bip.n_users + bip.n_items
     dev = bip.B.device

@@ -36,7 +36,8 @@ import torch
 
 from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.kernels.bitpack import pad_to
-from igcn_cf_tpu_torch.kernels.pcache import _TILE, _d_padded, _rows32, cached_prop
+from igcn_cf_tpu_torch.kernels.pcache import (
+    _TILE, _check_4d, _d_padded, _rows32, cached_prop, fwd_body_launch)
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
@@ -76,21 +77,6 @@ def fused_bwd_4d_plain(p4: torch.Tensor, rows: torch.Tensor,
 # -- T1/T2: CUDA kernels -----------------------------------------------------------
 
 
-def _check_4d(p4, rows, x, x_rows, what, tr):
-    if (p4.dtype != torch.bfloat16 or p4.dim() != 4 or p4.shape[3] != 128
-            or not p4.is_contiguous()):
-        raise ValueError("P4 must be a contiguous (n, NJ, sub, 128) bf16 tensor")
-    for name, t in (("rows", rows), (what, x)):
-        if t.device != p4.device:
-            raise ValueError(f"{name} is on {t.device}, P4 on {p4.device}")
-    if rows.dim() != 1 or rows.dtype not in (torch.int32, torch.int64):
-        raise ValueError("rows must be a 1-D integer tensor")
-    if x.dim() != 2 or x.shape[0] != x_rows:
-        raise ValueError(f"{what} must be ({x_rows}, d), got {tuple(x.shape)}")
-    if not (16 <= tr <= 256 and tr % 16 == 0):
-        raise ValueError(f"TR {tr} must be a multiple of 16 in [16, 256]")
-
-
 def _launch_4d(entry, kid, p4, rows, x, out_rows, tr, *extra,
                transposed=False):
     """Launch C entry ``entry`` over (P4, rows, x padded to dpad, out) and
@@ -127,31 +113,6 @@ def fwd_launch_shape(r: int, npad: int, d: int, tr: int = TR) -> dict:
     return dict(zip(FWD_SHAPE_KEYS, shape))
 
 
-def _fwd_launch(entry, kid, p4, rows, x0, tr, *extra, splits=None):
-    """Launch forward-body entry ``entry`` (T1 or T3) and count it under
-    ``kid``: S column splits (``fwd_splits`` unless given), their partial
-    slabs summed in order. ``extra`` ints follow ``splits``."""
-    with _build.counted(kid):
-        n, nj, sub, _ = p4.shape
-        npad = nj * sub * 128
-        _check_4d(p4, rows, x0, npad, "x0", tr)
-        r, d = rows.shape[0], x0.shape[1]
-        xb = _d_padded(x0)
-        dpad = xb.shape[1]
-        if splits is None:
-            splits = _build.splits("igcn_fused_fwd_splits", p4.device.index,
-                                   r, npad, dpad, tr)
-        if not 1 <= splits <= npad // 64:
-            raise ValueError(f"splits {splits} must be in [1, {npad // 64}]")
-        out = torch.empty((r, dpad), dtype=torch.float32, device=p4.device)
-        part = out if splits == 1 else torch.empty((splits, r, dpad),
-                                                   dtype=torch.float32,
-                                                   device=p4.device)
-        _build.launch(entry, p4, rows.to(torch.int32).contiguous(), xb, part,
-                      out, n, nj, sub * 128, r, dpad, tr, splits, *extra)
-    return out if dpad == d else out[:, :d]
-
-
 def fused_fwd_4d(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
                  tr: int = TR, splits: int | None = None) -> torch.Tensor:
     """T1: (R, d) f32 = P4[rows] @ X0 for P4 (n, NJ, sub, 128) bf16 and X0
@@ -162,8 +123,8 @@ def fused_fwd_4d(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
     ``csrc/pcache_4d.cu``; CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return fused_fwd_4d_plain(p4, rows, x0)
-    return _fwd_launch("igcn_fused_fwd_4d", "T1", p4, rows, x0, tr,
-                       splits=splits)
+    return fwd_body_launch("igcn_fused_fwd_4d", "T1", p4, rows, x0, tr,
+                           splits=splits)
 
 
 def fused_bwd_4d(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,

@@ -32,10 +32,11 @@ import numpy as np
 import torch
 
 from igcn_cf_tpu_torch.kernels import _build
+from igcn_cf_tpu_torch.kernels.pcache import _check_4d, fwd_body_launch
 from igcn_cf_tpu_torch.tools import bound_ms, card, report
 from igcn_cf_tpu_torch.tools.microbench_pcache import (
-    _check_4d, _fwd_launch, _launch_4d, bwd_launch_line, fused_fwd_4d_plain,
-    random_inputs, relerr, to4d)
+    _launch_4d, bwd_launch_line, fused_fwd_4d_plain, random_inputs, relerr,
+    to4d)
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
 
 TR = 128
@@ -67,8 +68,8 @@ def fwd_tune(p4: torch.Tensor, rows: torch.Tensor, x0: torch.Tensor,
     ``csrc/pcache_4d.cu``; CPU tensors take the plain version."""
     if not _build.on_cuda(p4):
         return fwd_tune_plain(p4, rows, x0)
-    return _fwd_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, tr,
-                       int(bool(resident_x0)))
+    return fwd_body_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, tr,
+                           int(bool(resident_x0)))
 
 
 def bwd_t(p4: torch.Tensor, rows: torch.Tensor, ct: torch.Tensor,

@@ -20,6 +20,7 @@ from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.kernels.dense_graph import FeatDrop
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 EXACT = dict(rtol=0, atol=1e-10)
 LOSS_RTOL = 1e-5
@@ -29,19 +30,6 @@ MODEL_CFG = {"name": "IGCN", "embedding_size": 16, "n_layers": 2,
 TRAINER_CFG = {"name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3,
                "l2_reg": 1e-3, "aux_reg": 0.01, "n_epochs": 1,
                "batch_size": 64, "topks": [10], "seed": 2021}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: these tests train many small steps, and beside
-    the suite's other workers a pool of threads waits at every op for
-    threads the other workers starve (a search of 2.8 s alone took 417 s
-    in the suite). Bit-identity across threads is
-    tests/test_torch_determinism.py's subject."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

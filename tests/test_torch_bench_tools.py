@@ -35,22 +35,13 @@ from igcn_cf_tpu_torch.tools import bench_eval, bench_serve, bench_serve_grown
 from igcn_cf_tpu_torch.tools import microbench_retrieval as mr
 from igcn_cf_tpu_torch.tools import scaling_harness, serve_grown_phase
 from igcn_cf_tpu_torch.tools import sharded_midscale
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # tests/test_torch_serve.py's IGCN representation tolerance against JAX:
 # each layer rounds its input to bf16, and another order of f32 sums can
 # move an element by one bf16 step
 REP_TOL = dict(rtol=2e-3, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: these tests train small steps beside the
-    suite's other workers (tests/test_torch_tuning.py)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _one_call(fn, **kw):  # no device clock on the CPU: run once, time 1

@@ -12,6 +12,7 @@ import igcn_cf_tpu.kernels.bitpack as jbp
 import igcn_cf_tpu.kernels.dense_graph as jdg
 from igcn_cf_tpu_torch.kernels import _build, bitpack, dense_graph
 from igcn_cf_tpu_torch.kernels.bitpack import TK, TM
+from torch_threads import one_thread  # noqa: F401
 
 # bf16 operands, f32 sums in another order: only rounding of the sums differs
 PAIR_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -132,14 +133,18 @@ def test_cpu_tensors_take_the_plain_versions(rng):
 
 
 def test_bf16_rows_pads_with_zero_columns():
-    """The product wrappers' operand copy: (d, n) -> (n, width) bf16 rows,
-    the columns past d zero (the bodies read rows as 16-byte vectors)."""
+    """The launch helpers' operand copy: (n, d), here the transposed view of
+    a (d, n) operand as the pair's entries pass it, -> contiguous (n,
+    width) bf16 rows, d padded to a multiple of 8 with zero columns (the
+    bodies read rows as 16-byte vectors)."""
     xt = torch.randn(5, 7)
-    rows = bitpack._bf16_rows(xt, 8)
+    rows = bitpack._bf16_rows(xt.T)
     assert rows.shape == (7, 8) and rows.dtype == torch.bfloat16
+    assert rows.is_contiguous()
     assert torch.equal(rows[:, :5], xt.T.to(torch.bfloat16))
     assert not rows[:, 5:].any()
-    assert torch.equal(bitpack._bf16_rows(xt), xt.T.to(torch.bfloat16))
+    xt = torch.randn(16, 7)
+    assert torch.equal(bitpack._bf16_rows(xt.T), xt.T.to(torch.bfloat16))
 
 
 def test_other_devices_are_refused():
@@ -190,7 +195,7 @@ def test_feat_aggregate_matches_jax(tiny_ds, rng):
 def test_one_propagation_step_matches_jax(small_ds, rng):
     g, jg = _graphs(small_ds)
     xt = rng.normal(size=(8, small_ds.n_users + small_ds.n_items)).astype(np.float32)
-    got = dense_graph._sym_norm_propagate_t(g, torch.as_tensor(xt))
+    got = dense_graph.sym_norm_propagate(g, torch.as_tensor(xt).T).T
     want = jdg._sym_norm_propagate_t(jg, jnp.asarray(xt))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **PAIR_TOL)
 

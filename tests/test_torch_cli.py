@@ -27,6 +27,7 @@ from igcn_cf_tpu_torch.models.imcgae import IMCGAE
 from igcn_cf_tpu_torch.models.mf import MF
 from igcn_cf_tpu_torch.models.multivae import MultiVAE
 from igcn_cf_tpu_torch.models.neumf import NeuMF
+from torch_threads import one_thread  # noqa: F401
 
 SPLIT = "data/Gowalla/1"
 SIX = ["All users and all items result.", "Old users and all items result.",

@@ -15,6 +15,7 @@ import torch
 import chip_smoke
 from igcn_cf_tpu_torch.kernels import _build, bitpack, pcache, retrieval
 from igcn_cf_tpu_torch.kernels.dense_graph import BipartiteDense
+from torch_threads import one_thread  # noqa: F401
 
 # K3/K4 and K6/K7 against plain f32 matmuls of the same bf16 operands: only
 # the order of the f32 sums differs (mma tiles vs matmul)
@@ -937,8 +938,8 @@ def test_fwd_body_matches_plain_at_every_split(cuda, nj, tr, d):
     for splits in sorted({1, chosen, shape["max_splits"]}):
         before = dict(_build.LAUNCHES)
         t1 = mpc.fused_fwd_4d(p4, rows, x0, tr, splits)
-        t3 = [mpc._fwd_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, tr, res,
-                              splits=splits) for res in (0, 1)]
+        t3 = [pcache.fwd_body_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0,
+                                     tr, res, splits=splits) for res in (0, 1)]
         torch.cuda.synchronize()
         assert _build.LAUNCHES["T1"] == before["T1"] + 1
         assert _build.LAUNCHES["T3"] == before["T3"] + 2
@@ -995,8 +996,8 @@ def test_fwd_wrappers_refuse_bad_splits(cuda):
         with pytest.raises(ValueError, match="splits"):
             mpc.fused_fwd_4d(p4, rows, x0, 64, splits)
         with pytest.raises(ValueError, match="splits"):
-            mpc._fwd_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0, 64, 1,
-                            splits=splits)
+            pcache.fwd_body_launch("igcn_fused_fwd_tune", "T3", p4, rows, x0,
+                                   64, 1, splits=splits)
     assert _build.LAUNCHES == before
 
 

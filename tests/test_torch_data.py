@@ -13,6 +13,7 @@ from igcn_cf_tpu_torch.data.dataset import Interactions
 from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.data.transforms import dropit, dropui
 from igcn_cf_tpu_torch.graph import build
+from torch_threads import one_thread  # noqa: F401
 
 SYNTH_CASES = [
     dict(n_users=60, n_items=80, avg_degree=12, seed=7),  # tiny_ds

@@ -22,6 +22,7 @@ from igcn_cf_tpu_torch.evaluation.evaluate import mask_topk, recommend
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.models.multivae import MultiVAEDraw
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-5

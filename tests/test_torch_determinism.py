@@ -14,6 +14,7 @@ import torch
 from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.models.base import get_model, take_rows
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 THREADS = 4
 D = 64

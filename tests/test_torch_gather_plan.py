@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from igcn_cf_tpu_torch.tools import microbench_gather as mg
+from torch_threads import one_thread  # noqa: F401
 
 # the gather tool's four cases, then wrapped runs (reps >= N), a ragged
 # bf16 N and a one-column stripe at the shared-memory limit

@@ -33,6 +33,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import FeatDrop
 from igcn_cf_tpu_torch.models.base import get_model, kaiming_uniform, linear_init
 from igcn_cf_tpu_torch.models.ngcf import NGCFDrop
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 # bf16 operands, f32 sums in another order: only the sums' rounding differs
 PAIR_TOL = dict(rtol=1e-5, atol=1e-4)

@@ -22,6 +22,7 @@ from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.models.idcf import IDCFDraw
 from igcn_cf_tpu_torch.models.imcgae import IMCGAEDrop
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 # bf16 operands, f32 sums in another order (tests/test_torch_gcn.py)
 PAIR_TOL = dict(rtol=1e-5, atol=1e-4)

@@ -25,6 +25,7 @@ from igcn_cf_tpu_torch.evaluation.evaluate import recommend
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.serve import Recommender
 from igcn_cf_tpu_torch.train.trainer import BasicTrainer, get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 FULL = dict(n_users=80, n_items=100, avg_degree=14, seed=5)
 CONFIGS = {

@@ -25,6 +25,7 @@ from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.evaluation.evaluate import evaluate, recommend
 from igcn_cf_tpu_torch.evaluation.metrics import calculate_metrics
 from igcn_cf_tpu_torch.models.base import get_model
+from torch_threads import one_thread  # noqa: F401
 
 SYNTH = dict(n_users=70, n_items=90, avg_degree=14, seed=5)
 RAW_FILES = {"Gowalla": "Gowalla_totalCheckins.txt",

@@ -17,6 +17,7 @@ import torch_mesh_workers as W
 from igcn_cf_tpu.data.transforms import dropui as jax_dropui
 from igcn_cf_tpu.models.base import get_model as jax_get_model
 from igcn_cf_tpu.serve import Recommender as JaxRecommender
+from torch_threads import one_thread  # noqa: F401
 
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 MODEL_CFG = {

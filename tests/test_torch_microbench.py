@@ -53,6 +53,7 @@ from igcn_cf_tpu_torch.tools import (
     sharded_midscale,
 )
 from igcn_cf_tpu_torch.tuning import grid, population
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # bf16 operands, f32 sums in another order: only the sums' rounding differs

@@ -16,20 +16,11 @@ from benchmark.roofline import datasheet, k1, k2, least_s
 from benchmark.run import Reading, cell_files, cell_of, load_spec, reader
 from benchmark.trace import Trace
 from igcn_cf_tpu_torch.utils import spans
+from torch_threads import one_thread  # noqa: F401
 
 N_USERS, N_ITEMS, D, SIZES = 60, 90, 16, [16, 16, 16]
 SEED = 2**31 + 977
 H100 = datasheet("NVIDIA H100 80GB HBM3")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these tests train small steps beside the
-    suite's other workers."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

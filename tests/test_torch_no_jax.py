@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

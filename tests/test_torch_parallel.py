@@ -27,6 +27,7 @@ from igcn_cf_tpu.graph.build import COO as JaxCOO
 from igcn_cf_tpu.graph.build import sym_norm_adjacency as jax_sym_norm
 from igcn_cf_tpu.parallel import sharded as jsh
 from igcn_cf_tpu.parallel import steps as jsteps
+from torch_threads import one_thread  # noqa: F401
 
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 D, N_LAYERS, BATCH, L2, AUX = 8, 2, 64, 0.1, 0.01

@@ -26,6 +26,7 @@ from igcn_cf_tpu_torch.tools import (
     soak_gowalla,
 )
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_RESULTS = ("PARITY_RESULTS.json", "AMAZON_SCALE.json")

@@ -10,6 +10,7 @@ import torch
 import igcn_cf_tpu.kernels.retrieval as jret
 from igcn_cf_tpu_torch.kernels import retrieval
 from igcn_cf_tpu_torch.kernels.retrieval import NEG
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_constants_match_jax():

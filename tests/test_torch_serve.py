@@ -22,6 +22,7 @@ from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.data.transforms import dropui
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.serve import Recommender
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_CFG = {
     "name": "IGCN", "embedding_size": 16, "n_layers": 2, "dropout": 0.0,

@@ -24,6 +24,7 @@ from igcn_cf_tpu_torch.kernels import _build, pcache
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.serve import Recommender
 from igcn_cf_tpu_torch.utils import spans
+from torch_threads import one_thread  # noqa: F401
 
 TRAIN_SPANS = ("train.step", "train.sample", "train.forward",
                "train.backward", "train.optimizer", "train.epoch_end")
@@ -32,16 +33,6 @@ SERVE_SPANS = ("serve.recommend", "serve.prepare", "serve.launch",
 TRAIN_READERS = ("sample_host_ms", "forward_host_ms", "backward_host_ms",
                  "optimizer_host_ms", "kernel_host_us")
 SERVE_READERS = ("recommend_host_ms", "recommend_fetch_ms")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these tests train small steps beside the
-    suite's other workers (tests/test_torch_tuning.py)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

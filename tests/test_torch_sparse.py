@@ -14,6 +14,7 @@ from igcn_cf_tpu.graph import build as jax_build
 from igcn_cf_tpu_torch.graph import build
 from igcn_cf_tpu_torch.kernels import dense_graph, sparse
 from igcn_cf_tpu_torch.models.base import get_model
+from torch_threads import one_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -27,6 +27,7 @@ from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.models.ngcf import NGCFDrop
 from igcn_cf_tpu_torch.serve import Recommender
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-5

@@ -34,6 +34,7 @@ from igcn_cf_tpu_torch.train import step_graph
 from igcn_cf_tpu_torch.train.bpr import _StepTrainer
 from igcn_cf_tpu_torch.train.trainer import get_trainer
 from igcn_cf_tpu_torch.utils import spans
+from torch_threads import one_thread  # noqa: F401
 
 # graphed against eager: the same launches on the same inputs. The graph's
 # Adam is ``capturable`` (its bias corrections in f32 on the device, not in

@@ -31,6 +31,7 @@ from igcn_cf_tpu_torch.kernels import _build
 from igcn_cf_tpu_torch.tools import microbench_spmm2 as mspmm
 from igcn_cf_tpu_torch.tools import microbench_topk as mtopk
 from igcn_cf_tpu_torch.tools.microbench_topk import TOPK_CHUNK
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, K = 16, 5000, 20

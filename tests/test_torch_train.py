@@ -39,6 +39,7 @@ from igcn_cf_tpu_torch.kernels.dense_graph import FeatDrop
 from igcn_cf_tpu_torch.kernels.pcache import build_prop_cache
 from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.train.trainer import get_trainer
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_CFG = {"name": "IGCN", "embedding_size": 16, "n_layers": 2,
              "dropout": 0.3, "feature_ratio": 1.0, "graph_backend": "dense"}

@@ -18,6 +18,7 @@ from igcn_cf_tpu_torch.kernels import _build, bitpack, dense_graph, pcache
 from igcn_cf_tpu_torch.kernels.bitpack import TK, TM
 from igcn_cf_tpu_torch.kernels.dense_graph import FeatDrop
 from igcn_cf_tpu_torch.utils.timing import cuda_ms
+from torch_threads import one_thread  # noqa: F401
 
 # bf16 operands, f32 sums in another order: only the sums' rounding differs
 PAIR_TOL = dict(rtol=1e-5, atol=1e-4)

@@ -29,6 +29,7 @@ from igcn_cf_tpu_torch.cli import main as cli
 from igcn_cf_tpu_torch.core.mesh import spawn_world
 from igcn_cf_tpu_torch.data.synthetic import synthetic_interactions
 from igcn_cf_tpu_torch.tuning import grid
+from torch_threads import one_thread  # noqa: F401
 
 # tests/test_tuning.py:25-29
 MF = {"name": "MF", "embedding_size": 8}
@@ -46,15 +47,6 @@ IGCN_TRAINER = dict(MF_TRAINER, name="IGCNTrainer", n_epochs=3, batch_size=128,
                     max_patience=1)
 IGCN_GRID = {"lr": [1e-2, 1e-1], "l2_reg": [0.0], "dropout": [0.0, 0.3],
              "aux_reg": [1e-1]}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_tuning.py trains."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

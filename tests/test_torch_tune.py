@@ -21,6 +21,7 @@ from igcn_cf_tpu_torch.kernels import _build, pcache
 from igcn_cf_tpu_torch.tools import microbench_gather as mg
 from igcn_cf_tpu_torch.tools import microbench_pcache as mpc
 from igcn_cf_tpu_torch.tools import microbench_pcache_tune as mpt
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # bf16 operands, f32 sums in another order: only the sums' rounding differs

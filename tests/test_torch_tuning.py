@@ -30,24 +30,12 @@ from igcn_cf_tpu_torch.models.base import get_model
 from igcn_cf_tpu_torch.models.idcf import IDCFDraw
 from igcn_cf_tpu_torch.train.trainer import OPTIMIZERS
 from igcn_cf_tpu_torch.tuning import grid, population
+from torch_threads import one_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5
 GRAD_REL = 4e-3  # as tests/test_torch_train.py: one step's gradients
 PRESETS = [(name, i) for name, n in (("gowalla", 10), ("yelp", 10), ("amazon", 8))
            for i in range(n)]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: these tests train many small steps, and beside
-    the suite's other workers a pool of threads waits at every op for
-    threads the other workers starve (a search of 2.8 s alone took 417 s
-    in the suite). Bit-identity across threads is
-    tests/test_torch_determinism.py's subject."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _t(x):
@@ -427,11 +415,3 @@ def test_tune_raises_without_a_card(grid_ds):
         pytest.skip("a CUDA card is visible")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cli.main(["tune", "--data-path", grid_ds, "--n-epochs", "1"])
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
